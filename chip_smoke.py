@@ -8,16 +8,25 @@ Phases (every failure exits nonzero; no phase's failure is caught):
 1. build   — compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
              (one process per source, started together) into ``build/``.
 2. kernels — each hand-written kernel against its plain PyTorch version
-             on the card, at the main path's shapes, with its time (CUDA
+             on the card, at the main paths' shapes, with its time (CUDA
              events, median), the plain version's time, one PyTorch
-             library call's time (a yardstick the port never calls) and
-             the least time the card could take (``configs.base.H100``).
-3. serve   — the main path: ``ServeEngine`` on full-width qwen3-14b in
-             bf16, all 40 layers, random weights from a seeded generator,
-             16 requests; kernel launch counters are zeroed just before
-             and read just after, and the engine's books must balance.
-4. parity  — full width, 2 layers, bf16: prefill and 8 decode-step logits
-             with ``use_kernels=True`` against ``use_kernels=False``.
+             library call's time where one computes the same function (a
+             yardstick the port never calls) and the least time the card
+             could take (``configs.base.H100``).
+3. serve   — the main paths, each through ``ServeEngine`` in bf16 at full
+             width and depth, random weights from a seeded generator:
+             qwen3-14b (40 layers, 16 requests), falcon-mamba-7b (64
+             layers, 12 requests) and recurrentgemma-9b (38 layers = 12
+             repetitions + 2 remainder layers, 12 requests, prompts past
+             its 2048-token attention window).  Kernel launch counters are
+             zeroed just before each run and read just after; every
+             kernel of the model's path must have launched, once per
+             layer of its kind per prefill call, and the engine's books
+             must balance.
+4. parity  — full width, bf16, reduced depth (qwen3-14b and falcon-mamba-7b
+             at 2 layers, recurrentgemma-9b at 5): prefill and 8
+             decode-step logits with ``use_kernels=True`` against
+             ``use_kernels=False``.
 
 The line before the last is the card's name and power limit, the one
 before that the kernels' JSON record, and the last line
@@ -25,6 +34,7 @@ before that the kernels' JSON record, and the last line
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -41,12 +51,22 @@ SEED = 0
 FP32_PEAK = 67e12
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 NORM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# scans against their step-by-step plain versions, relative and absolute,
+# as tests/test_kernels.py: h matches to rounding; y's sum over N runs in
+# another order
+SCAN_TOL = {"rglru_scan": 1e-5, "ssm_scan": 1e-4}
 # prefill/decode logits, kernels vs plain, bf16 at full width: the two
 # paths round at different points (the flash kernel keeps P in fp32 where
 # chunked attention casts it to bf16; rmsnorm sums in another order).
-# Logits are O(1-4); a reduced-width CPU run of the same comparison gave
-# max |diff| 1.6e-2, so 0.1 leaves room for 40x wider matmuls.
+# qwen3-14b's logits are O(1-4); a reduced-width CPU run of the same
+# comparison gave max |diff| 1.6e-2, so 0.1 leaves room for 40x wider
+# matmuls.  falcon-mamba-7b ties its unembedding to an N(0, 1) table, so
+# its logits reach the hundreds, where one bf16 ulp is 0.5-1: there the
+# bound is 3e-2 of the largest logit magnitude (tests/test_torch_recurrent's
+# bf16 bound), and 0.1 where that is smaller.  The final hidden states
+# (RMS 1 after the final norm) are held to the same rule.
 PARITY_TOL = 0.1
+PARITY_REL = 3e-2
 
 
 def log(*a):
@@ -175,7 +195,67 @@ def norm_case(T_, D, dtype, hw, flush):
     return rec
 
 
+def _scan_check(name, got, want):
+    tol = SCAN_TOL[name]
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel = max(float(((g - w).abs() / (tol + tol * w.abs())).max())
+              for g, w in zip(got, want))
+    assert math.isfinite(err) and rel <= 1.0, \
+        f"{name} kernel disagrees: max_abs_err {err} (tol {tol})"
+    return err, tol
+
+
+def rglru_case(B, S, W, hw, flush):
+    """RG-LRU scan: no single PyTorch call computes a linear recurrence,
+    so there is no library time."""
+    import torch
+    from repro_torch.kernels import linear_scan as LS
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    a = 0.4 + 0.599 * torch.rand(B, S, W, device="cuda", generator=g)
+    b = torch.randn(B, S, W, device="cuda", generator=g)
+    got = LS.rglru_scan_cuda(a, b)
+    torch.cuda.synchronize()
+    err, tol = _scan_check("rglru_scan", [got], [LS.rglru_scan_plain(a, b)])
+    ms = time_ms(lambda: LS.rglru_scan_cuda(a, b), flush=flush)
+    plain_ms = time_ms(lambda: LS.rglru_scan_plain(a, b), flush=flush)
+    nbytes = 4 * 3 * a.numel()            # read a, b; write h
+    flops = 2.0 * a.numel()               # one multiply, one add
+    bound_ms, bound_by = bound(flops, nbytes, FP32_PEAK, hw)
+    rec = dict(shape=f"B{B} S{S} W{W} float32", max_abs_err=err, tol=tol,
+               ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+               bound_by=bound_by, gbps=nbytes / ms / 1e6)
+    log("rglru_scan", json.dumps(rec))
+    return rec
+
+
+def ssm_case(B, S, D, N, hw, flush):
+    """Selective scan with its C-contraction, on the model layout."""
+    import torch
+    from repro_torch.kernels import linear_scan as LS
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    a = 0.4 + 0.599 * torch.rand(B, S, D, N, device="cuda", generator=g)
+    b = 0.1 * torch.randn(B, S, D, N, device="cuda", generator=g)
+    c = torch.randn(B, S, N, device="cuda", generator=g)
+    got = LS.ssm_scan_cuda(a, b, c)
+    torch.cuda.synchronize()
+    err, tol = _scan_check("ssm_scan", got, LS.ssm_scan_plain(a, b, c))
+    ms = time_ms(lambda: LS.ssm_scan_cuda(a, b, c), flush=flush)
+    plain_ms = time_ms(lambda: LS.ssm_scan_plain(a, b, c), flush=flush)
+    # read a, b, c; write y and h_last
+    nbytes = 4 * (2 * a.numel() + c.numel() + B * S * D + B * D * N)
+    flops = 4.0 * a.numel()               # recurrence + contraction
+    bound_ms, bound_by = bound(flops, nbytes, FP32_PEAK, hw)
+    rec = dict(shape=f"B{B} S{S} D{D} N{N} float32", max_abs_err=err,
+               tol=tol, ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bound_ms, bound_by=bound_by,
+               gbps=nbytes / ms / 1e6)
+    log("ssm_scan", json.dumps(rec))
+    del a, b, c, got
+    return rec
+
+
 def kernel_phase(hw):
+    """The record of each kernel at its main path's headline shape."""
     import torch
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     flash = {}
@@ -187,11 +267,21 @@ def kernel_phase(hw):
     flash_case(1, 40, 8, 333, 128, "bfloat16", True, None, hw, flush)
     flash_case(2, 4, 2, 512, 32, "bfloat16", True, None, hw, flush)
     flash_case(2, 4, 2, 333, 32, "float32", False, 48, hw, flush)
+    # recurrentgemma-9b's attention: MQA, hd 256, past its 2048 window
+    flash_case(1, 16, 1, 3072, 256, "bfloat16", True, 2048, hw, flush)
+    flash_case(2, 4, 1, 333, 256, "float32", True, 48, hw, flush)
     norm = norm_case(4096, 5120, "bfloat16", hw, flush)
     norm_case(4096 * 40, 128, "bfloat16", hw, flush)
     norm_case(37, 256, "float32", hw, flush)
+    ssm = ssm_case(1, 2048, 8192, 16, hw, flush)    # falcon-mamba, one row
+    ssm_case(2, 333, 4100, 16, hw, flush)
+    ssm_case(1, 77, 96, 8, hw, flush)
+    rglru = rglru_case(1, 2048, 4096, hw, flush)    # recurrentgemma
+    rglru_case(2, 333, 4100, hw, flush)
     del flush
-    return flash[(2048, "bfloat16")], norm
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash[(2048, "bfloat16")], "rmsnorm": norm,
+            "ssm_scan": ssm, "rglru_scan": rglru}
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +299,17 @@ def check_books(requests, stats):
         assert r.finish is not None and r.finish >= r.arrival
 
 
-def serve_phase(smi):
+# (arch, requests, prompt lengths, engine window): the main paths.  Each
+# model runs at full width and depth; max_new_tokens come from {8, 16, 64}
+SERVES = [("qwen3-14b", 16, (512, 1024, 2048), 2304),
+          ("falcon-mamba-7b", 12, (512, 1024, 2048), 2304),
+          ("recurrentgemma-9b", 12, (512, 1024, 3072), 3200)]
+# the kernel each block kind's prefill launches once per layer
+KIND_KERNEL = {"attn": "flash_attention", "ssm": "ssm_scan",
+               "rglru": "rglru_scan"}
+
+
+def serve_phase(arch, n_requests, prompts, window, smi):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -218,26 +318,26 @@ def serve_phase(smi):
     from repro_torch.models import transformer as T
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config("qwen3-14b")                  # full width, bf16, 40 L
+    cfg = get_config(arch)                         # full width, bf16
     t0 = time.perf_counter()
     params = T.init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                           "cuda")
     torch.cuda.synchronize()
-    log(f"serve: qwen3-14b {cfg.num_layers} layers d_model {cfg.d_model} "
+    log(f"serve: {arch} {cfg.num_layers} layers d_model {cfg.d_model} "
         f"params {T.count_params(params) / 1e9:.3f} B bf16, init "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card")
 
     rng = np.random.default_rng(SEED)
     reqs = [Request(i, list(map(int, rng.integers(
-        0, cfg.vocab_size, int(rng.choice([512, 1024, 2048]))))),
-        int(rng.choice([8, 16, 64]))) for i in range(16)]
+        0, cfg.vocab_size, int(rng.choice(prompts))))),
+        int(rng.choice([8, 16, 64]))) for i in range(n_requests)]
 
     eng = ServeEngine(cfg, params, rt=T.Runtime(use_kernels=True),
                       amoeba=AmoebaConfig(split_threshold=0.3,
                                           fuse_threshold=0.05,
                                           min_phase_steps=2),
-                      capacity=8, window=2304)
+                      capacity=8, window=window)
     # CUDA events around the group's own prefill waves and its decode
     # closure (the ``decode_fn`` hook), recorded on the stream with no
     # added synchronization; non-finite decode logits raise a device flag
@@ -283,15 +383,20 @@ def serve_phase(smi):
     wall = time.perf_counter() - t
     launches = dict(ops.launches)                  # read just after
 
-    assert not bool(nonfinite), "serve: non-finite decode logits"
+    assert not bool(nonfinite), f"serve {arch}: non-finite decode logits"
     check_books(reqs, st)
     secs = {k: sum(s.elapsed_time(e) for s, e in v) / 1e3
             for k, v in spans.items()}
-    assert launches["flash_attention"] > 0 and launches["rmsnorm"] > 0, launches
-    assert launches["flash_attention"] == cfg.num_layers * prefill_batches, \
-        (launches, prefill_batches)
+    assert launches["rmsnorm"] > 0, launches
+    per_call = {KIND_KERNEL[k]: cfg.layer_kinds.count(k)
+                for k in set(cfg.layer_kinds)}
+    for name in ("flash_attention", "ssm_scan", "rglru_scan"):
+        want = per_call.get(name, 0) * prefill_batches
+        assert launches[name] == want, (arch, name, launches, want)
+        assert launches[name] > 0 or name not in per_call, (arch, launches)
     decode_tokens = st.useful_tokens - len(reqs)   # first tokens: prefill
     summary = dict(
+        arch=arch, layers=cfg.num_layers, requests=len(reqs),
         ticks=st.ticks, splits=st.splits, fuses=st.fuses,
         completed=st.completed, useful_tokens=st.useful_tokens,
         slot_steps=st.slot_steps, efficiency=st.efficiency,
@@ -302,12 +407,23 @@ def serve_phase(smi):
         decode_tok_s=decode_tokens / secs["decode"],
         prefill_s=secs["prefill"], decode_s=secs["decode"],
         wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-        launches=launches, card=smi)
+        launches=launches,
+        launches_per_prefill_call=per_call,
+        card=smi)
     log("serve", json.dumps(summary))
-    del eng, grp
-    decode_profile(cfg, params, T.Runtime(use_kernels=True))
+    # the timing hooks and the group refer to each other: drop both and
+    # collect the cycle, so this model's weights are freed before the next
+    # phase loads its own
+    del eng, grp, wave, decode, prefill_wave, decode_fn
+    rt = T.Runtime(use_kernels=True)
+    if arch == "qwen3-14b":
+        decode_profile(cfg, params, rt)
+    prefill_profile(cfg, params, rt, 4 * 2048 // max(prompts), max(prompts),
+                    window)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < 1e9, torch.cuda.memory_allocated()
     return launches
 
 
@@ -353,25 +469,87 @@ def decode_profile(cfg, params, rt, B=8, S=512, steps=4):
     log("decode_profile", json.dumps(rec))
 
 
+def prefill_profile(cfg, params, rt, B, S, window):
+    """Where one full-width prefill call's time goes: host wall
+    (unprofiled; the serve phase has warmed every kernel) against the
+    device time torch.profiler records, the top kernels, and the share of
+    the hand-written kernels."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")
+
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        T.prefill(params, {"tokens": toks}, cfg, rt, window=window)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    wall_ms = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    ours = {name: sum(e.self_device_time_total for e in kern
+                      if name in e.key) / 1e3
+            for name in ("flash_fwd_kernel", "rmsnorm_kernel",
+                         "ssm_scan_kernel", "rglru_scan_kernel")}
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    rec = dict(arch=cfg.name, batch=B, prompt=S, wall_ms=wall_ms,
+               device_ms=dev_ms if dev_ms > 0 else "not measured",
+               device_busy_share=dev_ms / wall_ms if dev_ms > 0
+               else "not measured",
+               kernels=sum(e.count for e in kern),
+               hand_written_ms={k: v for k, v in ours.items() if v > 0},
+               top=[(e.key[:60], round(e.self_device_time_total / 1e3, 4),
+                     e.count) for e in top])
+    log("prefill_profile", json.dumps(rec))
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: path parity — kernels vs plain at full width, 2 layers
 # ---------------------------------------------------------------------------
 
-def parity_phase():
+# (arch, layers, batch, prompt length, engine window); recurrentgemma-9b's
+# 5 layers are one repetition and the two remainder layers, and its
+# prompt runs past the 2048-token attention window
+PARITY = [("qwen3-14b", 2, 2, 256, 264),
+          ("falcon-mamba-7b", 2, 2, 256, 264),
+          ("recurrentgemma-9b", 5, 2, 2100, 2108)]
+
+
+def parity_phase(arch, layers, B, S, window):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    cfg = get_config("qwen3-14b").replace(num_layers=2)
+    cfg = get_config(arch).replace(num_layers=layers)
     params = T.init_model(cfg, torch.Generator(device="cuda").manual_seed(1),
                           "cuda")
     toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 256)), device="cuda")
+        0, cfg.vocab_size, (B, S)), device="cuda")
     rts = [T.Runtime(use_kernels=k) for k in (True, False)]
-    outs = [T.prefill(params, {"tokens": toks}, cfg, rt, window=264)
+    # the final hidden states too: at 2 layers falcon-mamba's tied logits
+    # are dominated by each token's own embedding (|logit| ~ d_model), where
+    # a bf16 ulp hides what the blocks did
+    hid = [T.forward_hidden(params, *T.embed_inputs(params, {"tokens": toks},
+                                                    cfg), cfg, rt)[0].float()
+           for rt in rts]
+    hid_err = float((hid[0] - hid[1]).abs().max())
+    hid_tol = max(PARITY_TOL, PARITY_REL * float(hid[1].abs().max()))
+    del hid
+    outs = [T.prefill(params, {"tokens": toks}, cfg, rt, window=window)
             for rt in rts]
     errs = [float((outs[0][0].float() - outs[1][0].float()).abs().max())]
+    absmax = float(outs[1][0].float().abs().max())
     states = [o[1] for o in outs]
     nxt = torch.argmax(outs[0][0], dim=-1)[:, None]
     for _ in range(8):
@@ -381,11 +559,16 @@ def parity_phase():
             assert bool(torch.isfinite(logits).all())
             lg.append(logits.float())
         errs.append(float((lg[0] - lg[1]).abs().max()))
+        absmax = max(absmax, float(lg[1].abs().max()))
         nxt = torch.argmax(lg[0], dim=-1)[:, None]   # same tokens to both
-    rec = dict(max_abs_err_prefill=errs[0], max_abs_err_decode=max(errs[1:]),
-               tol=PARITY_TOL, logit_absmax=float(outs[1][0].float().abs().max()))
+    tol = PARITY_TOL if arch == "qwen3-14b" else max(PARITY_TOL,
+                                                     PARITY_REL * absmax)
+    rec = dict(arch=arch, layers=layers, batch=B, prompt=S,
+               max_abs_err_prefill=errs[0], max_abs_err_decode=max(errs[1:]),
+               tol=tol, logit_absmax=absmax, max_abs_err_hidden=hid_err,
+               hidden_tol=hid_tol)
     log("parity", json.dumps(rec))
-    assert max(errs) <= PARITY_TOL, rec
+    assert max(errs) <= tol and hid_err <= hid_tol, rec
     del params, outs, states
     torch.cuda.empty_cache()
 
@@ -411,23 +594,38 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         log(f"build {name}:", " | ".join(sorted(set(regs))))
 
-    flash, norm = kernel_phase(H100)
-    launches = serve_phase(smi)
-    parity_phase()
+    t = time.perf_counter()
+    recs = kernel_phase(H100)
+    log(f"kernels: {time.perf_counter() - t:.1f} s")
+    by_phase = {}
+    for arch, n, prompts, window in SERVES:
+        t = time.perf_counter()
+        by_phase[arch] = serve_phase(arch, n, prompts, window, smi)
+        log(f"serve {arch}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    for case in PARITY:
+        parity_phase(*case)
+    log(f"parity: {time.perf_counter() - t:.1f} s")
 
     kernels = []
-    for name, rec, src, tpu in [
-            ("flash_attention", flash,
-             "src/repro_torch/kernels/csrc/flash_attention.cu",
+    for name, src, tpu in [
+            ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:119"),
-            ("rmsnorm", norm, "src/repro_torch/kernels/csrc/rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:34")]:
+            ("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:34"),
+            ("ssm_scan", "linear_scan.cu",
+             "src/repro/kernels/linear_scan.py:122"),
+            ("rglru_scan", "linear_scan.cu",
+             "src/repro/kernels/linear_scan.py:61")]:
+        rec = recs[name]
         kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=tpu,
-            launches=launches[name], max_abs_err=rec["max_abs_err"],
-            ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}", replaces=tpu,
+            launches=sum(v[name] for v in by_phase.values()),
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-            shape=rec["shape"]))
+            shape=rec["shape"],
+            launches_by_path={a: v[name] for a, v in by_phase.items()}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,10 @@
 //     about half;
 //   * rows of the smem tiles are padded to hd + 1 floats so the 16 lanes
 //     reading 16 different keys hit 16 different banks.
+// Head dims 32, 64, 128 and 256 (recurrentgemma's).  At hd 256 the staged
+// Q, K and V tiles take 3 x 64 x 257 x 4 = 197,376 bytes of shared memory
+// (P reuses K), under the 232,448-byte opt-in limit: one block per SM, and
+// each thread keeps 64 accumulator floats in registers.
 // Numerics follow the Pallas body: q is scaled in fp32, masked scores are
 // the finite sentinel -1e30 (not -inf: a tile where a row is wholly masked
 // then gives exp(0) garbage that the next live tile wipes through
@@ -226,6 +230,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, voi
     case 32: return launch<32, T>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, s);
     case 64: return launch<64, T>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, s);
     case 128: return launch<128, T>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, s);
+    case 256: return launch<256, T>(q, k, v, o, B, H, KV, Sq, Skv, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -11,14 +11,16 @@ the kernels; ``reset_launches`` zeroes it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import linear_scan as _ls
 from repro_torch.kernels import rmsnorm as _rn
 
-launches: Dict[str, int] = {"flash_attention": 0, "rmsnorm": 0}
+launches: Dict[str, int] = {"flash_attention": 0, "rmsnorm": 0,
+                            "ssm_scan": 0, "rglru_scan": 0}
 
 
 def reset_launches() -> None:
@@ -54,3 +56,28 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     else:
         out = _rn.rmsnorm_plain(rows, scale, eps)
     return out.reshape(shape)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (B, S, W) fp32 -> h (B, S, W) fp32."""
+    if a.is_cuda:
+        out = _ls.rglru_scan_cuda(a.contiguous(), b.contiguous())
+        launches["rglru_scan"] += 1
+        return out
+    return _ls.rglru_scan_plain(a, b)
+
+
+def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model-layout selective scan.
+
+    a, b: (B, S, D, N); c: (B, S, N) -> (y (B, S, D), h_last (B, D, N)).
+    The kernel reads this layout as it is (the reference transposes to
+    ``(B, S, N, D)`` for the TPU's lane axis).
+    """
+    if a.is_cuda:
+        out = _ls.ssm_scan_cuda(a.contiguous(), b.contiguous(),
+                                c.contiguous())
+        launches["ssm_scan"] += 1
+        return out
+    return _ls.ssm_scan_plain(a, b, c)

@@ -1,0 +1,120 @@
+"""RG-LRU recurrent block (recurrentgemma / Griffin).
+
+Counterpart of ``repro/models/rglru.py``:
+
+h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+a_t = exp(-c * softplus(Lambda) * r_t),  r_t = sigmoid(x W_a + b_a),
+i_t = sigmoid(x W_x).
+
+The block is: in-proj (x branch + gate branch) -> causal conv on x branch
+-> RG-LRU -> gate by gelu (tanh approximation, ``jax.nn.gelu``'s default)
+-> out-proj.  The recurrence is fp32; it goes through the CUDA kernel
+(``kernels.ops.rglru_scan``) under ``use_kernel`` and through
+``scan_utils.linear_scan`` otherwise.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import layers, scan_utils
+
+_C = 8.0  # Griffin's fixed temperature on the recurrence gate
+
+
+class RGLRUState(NamedTuple):
+    conv: torch.Tensor   # (B, K-1, W)
+    h: torch.Tensor      # (B, W) fp32
+
+
+def init_rglru(cfg: ModelConfig, device, generator: torch.Generator,
+               lead=()) -> dict:
+    r = cfg.rglru
+    d = cfg.d_model
+    w = r.lru_width or d
+    dtype = getattr(torch, cfg.dtype)
+    lead = tuple(lead)
+
+    def mat(shape, std):
+        return layers.truncated_normal_(
+            torch.empty(lead + shape, dtype=dtype, device=device), std,
+            generator)
+
+    # Lambda init so that a ~ uniform(0.9, 0.999) at r=1 (Griffin appendix)
+    u = torch.empty(lead + (w,), dtype=torch.float32, device=device)
+    u.uniform_(0.9, 0.999, generator=generator)
+    std_d, std_w = 1.0 / math.sqrt(d), 1.0 / math.sqrt(w)
+    return {
+        "in_x": mat((d, w), std_d),
+        "in_gate": mat((d, w), std_d),
+        "conv_w": mat((r.conv_width, w), 0.1),
+        "wa": mat((w, w), std_w),
+        "wx": mat((w, w), std_w),
+        "ba": torch.zeros(lead + (w,), dtype=torch.float32, device=device),
+        "lam": torch.log(torch.expm1(-torch.log(u) / _C)),
+        "out": mat((w, d), std_w),
+    }
+
+
+def _gates(params, xc):
+    """xc: (..., W) conv output -> (a, gated_input) in fp32."""
+    r = torch.sigmoid((xc @ params["wa"]).float() + params["ba"])
+    i = torch.sigmoid((xc @ params["wx"]).float())
+    log_a = -_C * F.softplus(params["lam"]) * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    b = beta * i * xc.float()
+    return a, b
+
+
+def rglru_forward(params, x: torch.Tensor, cfg: ModelConfig,
+                  use_kernel: bool = False, return_state: bool = False):
+    """x: (B,S,D) -> (B,S,D) (optionally also the final RGLRUState)."""
+    xb = x @ params["in_x"]
+    gate = x @ params["in_gate"]
+    xc = scan_utils.causal_conv1d(xb, params["conv_w"])
+    a, b = _gates(params, xc)
+    if use_kernel:
+        h = kernel_ops.rglru_scan(a, b)
+        h_last = h[:, -1]
+    else:
+        h0 = a.new_zeros((x.shape[0], a.shape[-1]))
+        h, h_last = scan_utils.linear_scan(a, b, h0)
+    y = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
+    out = y @ params["out"]
+    if not return_state:
+        return out
+    conv_state = scan_utils.conv_tail(xb, (cfg.rglru.conv_width
+                                           if cfg.rglru else 4))
+    # a copy: the state must not keep the whole (B, S, W) scan output alive
+    return out, RGLRUState(conv=conv_state, h=h_last.clone())
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int, device,
+                     lead=()) -> RGLRUState:
+    r = cfg.rglru
+    w = r.lru_width or cfg.d_model
+    lead = tuple(lead)
+    return RGLRUState(
+        conv=torch.zeros(lead + (batch, r.conv_width - 1, w),
+                         dtype=getattr(torch, cfg.dtype), device=device),
+        h=torch.zeros(lead + (batch, w), dtype=torch.float32, device=device),
+    )
+
+
+def rglru_step(params, state: RGLRUState, x_new: torch.Tensor,
+               cfg: ModelConfig) -> Tuple[torch.Tensor, RGLRUState]:
+    """Decode step.  x_new: (B,1,D) -> (B,1,D)."""
+    xb = x_new[:, 0] @ params["in_x"]
+    gate = x_new[:, 0] @ params["in_gate"]
+    xc, conv_state = scan_utils.causal_conv1d_step(
+        xb, state.conv, params["conv_w"])
+    a, b = _gates(params, xc)
+    h = scan_utils.linear_scan_step(a, b, state.h)
+    y = h.to(x_new.dtype) * F.gelu(gate, approximate="tanh")
+    return (y @ params["out"])[:, None], RGLRUState(conv=conv_state, h=h)

@@ -1,0 +1,131 @@
+"""Mamba-1 selective-SSM block (falcon-mamba-7b).
+
+Counterpart of ``repro/models/ssm.py``: in-proj (x and z branches) ->
+causal depthwise conv -> silu -> selective scan with the C-contraction ->
+``+ D x`` -> gate by silu(z) -> out-proj.  ``A_log``, ``D`` and the scan
+are fp32; the scan goes through the CUDA kernel (``kernels.ops.ssm_scan``)
+under ``use_kernel`` and through ``scan_utils.linear_scan_contract``
+otherwise.  The decode step is elementwise, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import layers, scan_utils
+
+
+class SSMState(NamedTuple):
+    conv: torch.Tensor   # (B, d_conv-1, d_inner)
+    h: torch.Tensor      # (B, d_inner, d_state) fp32
+
+
+def init_ssm(cfg: ModelConfig, device, generator: torch.Generator,
+             lead=()) -> dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    dtr = s.resolved_dt_rank(d)
+    dtype = getattr(torch, cfg.dtype)
+    lead = tuple(lead)
+
+    def w(shape, std):
+        return layers.truncated_normal_(
+            torch.empty(lead + shape, dtype=dtype, device=device), std,
+            generator)
+
+    log_dt = torch.empty(lead + (di,), dtype=torch.float32, device=device)
+    log_dt.uniform_(math.log(1e-3), math.log(1e-1), generator=generator)
+    a_log = torch.log(torch.arange(1, s.d_state + 1, dtype=torch.float32,
+                                   device=device))
+    return {
+        "in_proj": w((d, 2 * di), 1.0 / math.sqrt(d)),
+        "conv_w": w((s.d_conv, di), 0.1),
+        "x_proj": w((di, dtr + 2 * s.d_state), 1.0 / math.sqrt(di)),
+        "dt_proj": w((dtr, di), 1.0 / math.sqrt(dtr)),
+        # inverse softplus of dt ~ log-uniform(1e-3, 1e-1)
+        "dt_bias": torch.log(torch.expm1(torch.exp(log_dt))).to(dtype),
+        "A_log": a_log.expand(lead + (di, s.d_state)).contiguous(),
+        "D": torch.ones(lead + (di,), dtype=torch.float32, device=device),
+        "out_proj": w((di, d), 1.0 / math.sqrt(di)),
+    }
+
+
+def _ssm_inner(params, xc, cfg: ModelConfig):
+    """Common post-conv math: returns (dt, A, Bmat, Cmat).
+
+    xc: (B, S, di) conv+silu output.
+    """
+    s = cfg.ssm
+    dtr = s.resolved_dt_rank(cfg.d_model)
+    proj = xc @ params["x_proj"]                     # (B,S,dtr+2N)
+    dt, Bm, Cm = torch.split(proj, [dtr, s.d_state, s.d_state], dim=-1)
+    dt = F.softplus(dt @ params["dt_proj"]
+                    + params["dt_bias"].to(dt.dtype))  # (B,S,di)
+    A = -torch.exp(params["A_log"])                  # (di, N) fp32
+    return dt, A, Bm, Cm
+
+
+def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig,
+                use_kernel: bool = False, return_state: bool = False):
+    """x: (B,S,D) -> (B,S,D) (optionally also the final SSMState)."""
+    s = cfg.ssm
+    xz = x @ params["in_proj"]
+    xp, z = torch.chunk(xz, 2, dim=-1)               # (B,S,di) each
+    xc = F.silu(scan_utils.causal_conv1d(xp, params["conv_w"]))
+    dt, A, Bm, Cm = _ssm_inner(params, xc, cfg)
+    dtf = dt.float()
+    # discretize: a = exp(dt*A), b = dt*x*B, both (B,S,di,N); exp in place,
+    # since each is 8.6 GB for a wave of 8 rows of 2048 at full width
+    a = (dtf[..., None] * A).exp_()
+    bx = (dtf * xc.float())[..., None] * Bm.float()[:, :, None, :]
+    if use_kernel:
+        y, h_last = kernel_ops.ssm_scan(a, bx, Cm.float())
+    else:
+        h0 = a.new_zeros(a.shape[:1] + a.shape[2:])
+        y, h_last = scan_utils.linear_scan_contract(a, bx, Cm.float(), h0)
+    del a, bx
+    y = y + params["D"] * xc.float()
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ params["out_proj"]
+    if not return_state:
+        return out
+    conv_state = scan_utils.conv_tail(xp, s.d_conv)
+    return out, SSMState(conv=conv_state, h=h_last)
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, device, lead=()) -> SSMState:
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    lead = tuple(lead)
+    return SSMState(
+        conv=torch.zeros(lead + (batch, s.d_conv - 1, di),
+                         dtype=getattr(torch, cfg.dtype), device=device),
+        h=torch.zeros(lead + (batch, di, s.d_state), dtype=torch.float32,
+                      device=device),
+    )
+
+
+def ssm_step(params, state: SSMState, x_new: torch.Tensor,
+             cfg: ModelConfig) -> Tuple[torch.Tensor, SSMState]:
+    """Decode step.  x_new: (B,1,D) -> (B,1,D)."""
+    xz = x_new[:, 0] @ params["in_proj"]
+    xp, z = torch.chunk(xz, 2, dim=-1)                # (B,di)
+    xc, conv_state = scan_utils.causal_conv1d_step(
+        xp, state.conv, params["conv_w"])
+    xc = F.silu(xc)
+    dt, A, Bm, Cm = _ssm_inner(params, xc[:, None], cfg)
+    dtf = dt[:, 0].float()                            # (B,di)
+    a = torch.exp(dtf[..., None] * A)                 # (B,di,N)
+    bx = (dtf * xc.float())[..., None] * Bm[:, 0].float()[:, None, :]
+    h = scan_utils.linear_scan_step(a, bx, state.h)
+    y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())
+    y = y + params["D"] * xc.float()
+    y = y.to(x_new.dtype) * F.silu(z)
+    out = (y @ params["out_proj"])[:, None]
+    return out, SSMState(conv=conv_state, h=h)

@@ -16,22 +16,27 @@ from typing import Callable, List, Sequence
 
 import torch
 
-from repro_torch.models.attention import KVCache
 from repro_torch.models.transformer import DecodeState
 
 
 def _tree_map(f: Callable, *trees):
+    """``f`` over the tensor leaves of same-shaped trees; ``None`` stays.
+
+    A NamedTuple state (``KVCache``, ``SSMState``, ``RGLRUState``) is
+    rebuilt from its fields positionally, a plain tuple or list from an
+    iterable.
+    """
     first = trees[0]
     if first is None:
         return None
-    if isinstance(first, KVCache):
-        return KVCache(*[_tree_map(f, *[t[i] for t in trees])
-                         for i in range(len(first))])
     if isinstance(first, dict):
         return {k: _tree_map(f, *[t[k] for t in trees]) for k in first}
     if isinstance(first, (tuple, list)):
-        return type(first)(_tree_map(f, *[t[i] for t in trees])
-                           for i in range(len(first)))
+        items = [_tree_map(f, *[t[i] for t in trees])
+                 for i in range(len(first))]
+        if hasattr(first, "_fields"):
+            return type(first)(*items)
+        return type(first)(items)
     return f(*trees)
 
 

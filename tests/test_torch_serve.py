@@ -2,7 +2,9 @@
 
 Float32 on both sides (the reference's own bf16 greedy tokens move with
 batch composition — ROADMAP queue 3), capacity 4, fused and dynamic,
-under both regroup policies.  The engines must agree exactly: every
+under both regroup policies; the recurrent families (falcon-mamba-7b,
+recurrentgemma-9b) dynamic under ``warp_regroup``, whose splits and fuses
+re-cut their SSM / RG-LRU states.  The engines must agree exactly: every
 ServeStats field, every generated token, every completion tick.
 """
 import dataclasses
@@ -26,8 +28,12 @@ from repro_torch.serve import Request, ServeEngine  # noqa: E402
 
 @pytest.fixture(scope="module")
 def models():
-    jc = jget_config("qwen3-14b", reduced=True).replace(dtype="float32")
-    tc = get_config("qwen3-14b", reduced=True).replace(dtype="float32")
+    return _models("qwen3-14b")
+
+
+def _models(arch):
+    jc = jget_config(arch, reduced=True).replace(dtype="float32")
+    tc = get_config(arch, reduced=True).replace(dtype="float32")
     jp, _ = JT.init_model(jax.random.PRNGKey(0), jc)
     tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     return jc, jp, tc, tp
@@ -40,11 +46,12 @@ def _trace(vocab, n=10, seed=0):
              int(rng.choice([2, 5, 20]))) for i in range(n)]
 
 
-def _run(engine_cls, req_cls, amoeba_cls, cfg, params, policy, dynamic):
+def _run(engine_cls, req_cls, amoeba_cls, cfg, params, policy, dynamic,
+         n=10):
     eng = engine_cls(cfg, params, capacity=4, amoeba=amoeba_cls(
         regroup_policy=policy, split_threshold=0.3, fuse_threshold=0.05,
         min_phase_steps=2))
-    reqs = [req_cls(i, p, m) for i, p, m in _trace(cfg.vocab_size)]
+    reqs = [req_cls(i, p, m) for i, p, m in _trace(cfg.vocab_size, n=n)]
     eng.submit(reqs)
     st = eng.run(dynamic=dynamic)
     return (dataclasses.asdict(st),
@@ -66,6 +73,22 @@ def test_serve_engine_matches_reference(models, dynamic, policy):
     assert st["useful_tokens"] == sum(len(g) for g, _ in got[1].values())
     if not dynamic:
         assert st["splits"] == 0 and st["fuses"] == 0
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_recurrent_serve_engine_matches_reference(arch):
+    """Prefill waves build SSMState / RGLRUState rows, and the dynamic
+    engine's splits and fuses concat and re-slice them between decode
+    ticks; stats, tokens and finish ticks must stay the reference's."""
+    jc, jp, tc, tp = _models(arch)
+    want = _run(JServe, JRequest, JAmoeba, jc, jp, "warp_regroup", True, n=8)
+    got = _run(ServeEngine, Request, AmoebaConfig, tc, tp, "warp_regroup",
+               True, n=8)
+    assert got[0] == want[0]
+    assert got[1] == want[1]
+    assert [t[:3] for t in got[2]] == [t[:3] for t in want[2]]
+    assert got[0]["completed"] == 8
+    assert got[0]["splits"] > 0 and got[0]["fuses"] > 0
 
 
 def _run_fleet_hooks(group_cls, req_cls, cfg, params):
