@@ -23,10 +23,18 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              kernel of the model's path must have launched, once per
              layer of its kind per prefill call, and the engine's books
              must balance.
-4. parity  — full width, bf16, reduced depth (qwen3-14b and falcon-mamba-7b
-             at 2 layers, recurrentgemma-9b at 5): prefill and 8
-             decode-step logits with ``use_kernels=True`` against
-             ``use_kernels=False``.
+4. fleet   — the fleet path: ``FleetEngine`` with 4 reconfigurable groups
+             of capacity 8 serving full-width qwen3-14b (40 layers) with
+             an int8 KV cache, sticky routing onto a hot shard, work
+             stealing, KV-costed live migration priced on the int8 wire
+             layout, and slack leases.  Every K/V vector written goes
+             through the int8 quantize kernel: 2 launches per layer per
+             prefill and decode call.  At least one steal and one live
+             migration must run, and the books must balance.
+5. parity  — full width, bf16, reduced depth (qwen3-14b and falcon-mamba-7b
+             at 2 layers, recurrentgemma-9b at 5, qwen3-14b with the int8
+             KV cache): prefill and 8 decode-step logits with
+             ``use_kernels=True`` against ``use_kernels=False``.
 
 The line before the last is the card's name and power limit, the one
 before that the kernels' JSON record, and the last line
@@ -67,6 +75,8 @@ SCAN_TOL = {"rglru_scan": 1e-5, "ssm_scan": 1e-4}
 # (RMS 1 after the final norm) are held to the same rule.
 PARITY_TOL = 0.1
 PARITY_REL = 3e-2
+# the serve phases' control plane (dynamic warp_regroup)
+AMOEBA = dict(split_threshold=0.3, fuse_threshold=0.05, min_phase_steps=2)
 
 
 def log(*a):
@@ -254,6 +264,43 @@ def ssm_case(B, S, D, N, hw, flush):
     return rec
 
 
+def quant_case(T_, D, dtype, floor, hw, flush):
+    """Row-wise int8 quantizer.  The kernel does the plain version's IEEE
+    operations, so codes and scales must be equal exactly.  No single
+    PyTorch call computes this function (``torch.quantize_per_channel``
+    needs its scales given), so there is no library time."""
+    import torch
+    from repro_torch.kernels import quantize as QZ
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = 3.0 * torch.randn(T_, D, device="cuda", generator=g)
+    x[1] = 0.0                            # the floor alone sets the scale
+    x[2] *= 1e-9 / x[2].abs().max()       # amax between 1e-12 and 1e-8
+    x = x.to(getattr(torch, dtype))
+    q, s = QZ.quantize_int8_cuda(x, floor)
+    torch.cuda.synchronize()
+    wq, ws = QZ.quantize_int8_plain(x, floor)
+    dq = (q.int() - wq.int()).abs()
+    code_diff, n_diff = int(dq.max()), int((dq != 0).sum())
+    scale_err = float((s - ws).abs().max())
+    assert code_diff == 0 and torch.equal(s, ws), \
+        f"quantize_int8 kernel disagrees: {n_diff} codes differ (max " \
+        f"{code_diff}), scales by {scale_err}"
+    ms = time_ms(lambda: QZ.quantize_int8_cuda(x, floor), flush=flush)
+    plain_ms = time_ms(lambda: QZ.quantize_int8_plain(x, floor), flush=flush)
+    nbytes = x.numel() * x.element_size() + q.numel() + 4 * s.numel()
+    flops = 4.0 * x.numel()           # |x|, max, divide, round (fp32)
+    bound_ms, bound_by = bound(flops, nbytes, FP32_PEAK, hw)
+    rec = dict(shape=f"T{T_} D{D} {dtype} floor {floor:g}",
+               max_abs_err=max(float(code_diff), scale_err),
+               max_code_diff=code_diff, codes_differing=n_diff,
+               max_scale_diff=scale_err, tol=0.0, ms=ms, plain_ms=plain_ms,
+               library_ms=None, library="none: no single PyTorch call "
+               "computes the scales and the codes", bound_ms=bound_ms,
+               bound_by=bound_by, gbps=nbytes / ms / 1e6)
+    log("quantize_int8", json.dumps(rec))
+    return rec
+
+
 def kernel_phase(hw):
     """The record of each kernel at its main path's headline shape."""
     import torch
@@ -278,10 +325,17 @@ def kernel_phase(hw):
     ssm_case(1, 77, 96, 8, hw, flush)
     rglru = rglru_case(1, 2048, 4096, hw, flush)    # recurrentgemma
     rglru_case(2, 333, 4100, hw, flush)
+    # qwen3-14b's int8 KV writes: prefill_cache's K or V at B4, window
+    # 2304, 8 kv heads (floor 1e-8), and one decode step's at B8; then the
+    # TPU kernel's own sweep at its 1e-12 floor
+    quant = quant_case(4 * 2304 * 8, 128, "bfloat16", 1e-8, hw, flush)
+    quant_case(8 * 8, 128, "bfloat16", 1e-8, hw, flush)
+    quant_case(128, 1024, "float32", 1e-12, hw, flush)
+    quant_case(33, 257, "float32", 1e-12, hw, flush)
     del flush
     torch.cuda.empty_cache()
     return {"flash_attention": flash[(2048, "bfloat16")], "rmsnorm": norm,
-            "ssm_scan": ssm, "rglru_scan": rglru}
+            "ssm_scan": ssm, "rglru_scan": rglru, "quantize_int8": quant}
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +363,57 @@ KIND_KERNEL = {"attn": "flash_attention", "ssm": "ssm_scan",
                "rglru": "rglru_scan"}
 
 
+class PathSpans:
+    """CUDA events around groups' own prefill waves and decode closures
+    (the ``decode_fn`` hook), recorded on the stream with no added
+    synchronization; the count of prefill calls (one per prompt length
+    in a wave); non-finite decode logits raise a device flag."""
+
+    def __init__(self, cfg):
+        import torch
+        self.cfg = cfg
+        self.spans = {"prefill": [], "decode": []}
+        self.prefill_calls = 0
+        self.nonfinite = torch.zeros((), dtype=torch.bool, device="cuda")
+
+    def _span(self, name, fn):
+        import torch
+
+        def run(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            self.spans[name].append((s, e))
+            return out
+        return run
+
+    def hook(self, grp):
+        import torch
+        wave = self._span("prefill", grp._prefill_wave)
+        decode = self._span("decode", grp._decode)
+        vocab = self.cfg.vocab_size
+
+        def prefill_wave(*a, **kw):
+            g = wave(*a, **kw)
+            if g is not None:                      # one prefill per length
+                self.prefill_calls += len({len(r.prompt) for r in g.requests})
+            return g
+
+        def decode_fn(p, s, t):
+            logits, st = decode(p, s, t)
+            assert logits.shape == (t.shape[0], vocab), logits.shape
+            self.nonfinite.logical_or_(~torch.isfinite(logits).all())
+            return logits, st
+
+        grp._prefill_wave, grp._decode = prefill_wave, decode_fn
+
+    def seconds(self):
+        return {k: sum(s.elapsed_time(e) for s, e in v) / 1e3
+                for k, v in self.spans.items()}
+
+
 def serve_phase(arch, n_requests, prompts, window, smi):
     import numpy as np
     import torch
@@ -334,46 +439,10 @@ def serve_phase(arch, n_requests, prompts, window, smi):
         int(rng.choice([8, 16, 64]))) for i in range(n_requests)]
 
     eng = ServeEngine(cfg, params, rt=T.Runtime(use_kernels=True),
-                      amoeba=AmoebaConfig(split_threshold=0.3,
-                                          fuse_threshold=0.05,
-                                          min_phase_steps=2),
-                      capacity=8, window=window)
-    # CUDA events around the group's own prefill waves and its decode
-    # closure (the ``decode_fn`` hook), recorded on the stream with no
-    # added synchronization; non-finite decode logits raise a device flag
-    grp = eng.group
-    spans = {"prefill": [], "decode": []}
-    prefill_batches = 0
-    nonfinite = torch.zeros((), dtype=torch.bool, device="cuda")
-
-    def span(name, fn):
-        def run(*a, **kw):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = fn(*a, **kw)
-            e.record()
-            spans[name].append((s, e))
-            return out
-        return run
-
-    wave, decode = span("prefill", grp._prefill_wave), span("decode",
-                                                           grp._decode)
-
-    def prefill_wave(*a, **kw):
-        nonlocal prefill_batches
-        g = wave(*a, **kw)
-        if g is not None:                          # one prefill per length
-            prefill_batches += len({len(r.prompt) for r in g.requests})
-        return g
-
-    def decode_fn(p, s, t):
-        logits, st = decode(p, s, t)
-        assert logits.shape == (t.shape[0], cfg.vocab_size), logits.shape
-        nonfinite.logical_or_(~torch.isfinite(logits).all())
-        return logits, st
-
-    grp._prefill_wave, grp._decode = prefill_wave, decode_fn
+                      amoeba=AmoebaConfig(**AMOEBA), capacity=8,
+                      window=window)
+    paths = PathSpans(cfg)
+    paths.hook(eng.group)
     torch.cuda.reset_peak_memory_stats()
     eng.submit(reqs)
     ops.reset_launches()                           # zero just before the run
@@ -383,11 +452,12 @@ def serve_phase(arch, n_requests, prompts, window, smi):
     wall = time.perf_counter() - t
     launches = dict(ops.launches)                  # read just after
 
-    assert not bool(nonfinite), f"serve {arch}: non-finite decode logits"
+    assert not bool(paths.nonfinite), f"serve {arch}: non-finite logits"
     check_books(reqs, st)
-    secs = {k: sum(s.elapsed_time(e) for s, e in v) / 1e3
-            for k, v in spans.items()}
+    secs = paths.seconds()
+    prefill_batches = paths.prefill_calls
     assert launches["rmsnorm"] > 0, launches
+    assert launches["quantize_int8"] == 0, launches     # bf16 KV cache
     per_call = {KIND_KERNEL[k]: cfg.layer_kinds.count(k)
                 for k in set(cfg.layer_kinds)}
     for name in ("flash_attention", "ssm_scan", "rglru_scan"):
@@ -401,8 +471,8 @@ def serve_phase(arch, n_requests, prompts, window, smi):
         completed=st.completed, useful_tokens=st.useful_tokens,
         slot_steps=st.slot_steps, efficiency=st.efficiency,
         prefill_tokens=st.prefill_tokens, prefill_calls=prefill_batches,
-        prefill_waves=len(spans["prefill"]),
-        decode_calls=len(spans["decode"]),
+        prefill_waves=len(paths.spans["prefill"]),
+        decode_calls=len(paths.spans["decode"]),
         prefill_tok_s=st.prefill_tokens / secs["prefill"],
         decode_tok_s=decode_tokens / secs["decode"],
         prefill_s=secs["prefill"], decode_s=secs["decode"],
@@ -414,7 +484,7 @@ def serve_phase(arch, n_requests, prompts, window, smi):
     # the timing hooks and the group refer to each other: drop both and
     # collect the cycle, so this model's weights are freed before the next
     # phase loads its own
-    del eng, grp, wave, decode, prefill_wave, decode_fn
+    del eng, paths
     rt = T.Runtime(use_kernels=True)
     if arch == "qwen3-14b":
         decode_profile(cfg, params, rt)
@@ -459,7 +529,8 @@ def decode_profile(cfg, params, rt, B=8, S=512, steps=4):
             if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3 / steps
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    rec = dict(batch=B, cache_len=2304, wall_ms_per_call=wall_ms,
+    rec = dict(batch=B, cache_len=2304, kv_quant=rt.kv_quant,
+               wall_ms_per_call=wall_ms,
                device_ms_per_call=dev_ms if dev_ms > 0 else "not measured",
                device_busy_share=dev_ms / wall_ms if dev_ms > 0
                else "not measured",
@@ -514,21 +585,203 @@ def prefill_profile(cfg, params, rt, B, S, window):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: path parity — kernels vs plain at full width, 2 layers
+# Phase 4: the fleet path — FleetEngine, int8 KV cache, steals, live moves
 # ---------------------------------------------------------------------------
 
-# (arch, layers, batch, prompt length, engine window); recurrentgemma-9b's
-# 5 layers are one repetition and the two remainder layers, and its
-# prompt runs past the 2048-token attention window
-PARITY = [("qwen3-14b", 2, 2, 256, 264),
-          ("falcon-mamba-7b", 2, 2, 256, 264),
-          ("recurrentgemma-9b", 5, 2, 2100, 2108)]
+FLEET_GROUPS, FLEET_CAPACITY, FLEET_WINDOW = 4, 8, 2304
+# KV bytes per wall tick over the inter-group link.  KVTransferCost prices
+# a 2048-token request at 168.4 MB in int8 (2 stall ticks) and 335.5 MB in
+# bf16 (4 ticks); on this trace the planner's one live move amortizes on
+# the int8 wire layout and is vetoed on the bf16 one (the vec replay in
+# fleet_phase shows both)
+FLEET_LINK = 1e8
 
 
-def parity_phase(arch, layers, B, S, window):
+def fleet_trace(F, vocab):
+    """A hot shard pinned to group 0 (0.9 arrivals a tick) and three
+    warm ones (0.3: live moves need a split group with an idle part to
+    land on), prompts from {512, 1024, 2048}, bimodal outputs (8 or 64,
+    30 % long), 16 ticks of arrivals: 36 requests."""
+    profs = [F.TenantProfile(
+        f"shard{s}", rate=0.9 if s == 0 else 0.3, length_dist="bimodal",
+        short_tokens=8, long_tokens=64, p_long=0.3,
+        prompt_lengths=(512, 1024, 2048), shard=s)
+        for s in range(FLEET_GROUPS)]
+    return F.make_trace(profs, 16, vocab, seed=1)
+
+
+def _tensors(tree):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+def fleet_phase(smi):
+    import torch
+    from repro_torch import fleet as F
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (AmoebaConfig, FleetConfig,
+                                          LeaseConfig, MigrationConfig)
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("qwen3-14b")                 # full width, bf16
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                          "cuda")
+    torch.cuda.synchronize()
+    log(f"fleet: {cfg.name} {cfg.num_layers} layers, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rt = T.Runtime(use_kernels=True, kv_quant=True)
+
+    def fleet_cfg(quantized, engine="object"):
+        return FleetConfig(
+            num_groups=FLEET_GROUPS, capacity=FLEET_CAPACITY,
+            window=FLEET_WINDOW, mode="dynamic", router="sticky",
+            engine=engine, amoeba=AmoebaConfig(**AMOEBA),
+            migrate=MigrationConfig(enabled=True, quantized_kv=quantized,
+                                    link_bandwidth=FLEET_LINK),
+            lease=LeaseConfig(enabled=True))
+
+    eng = F.FleetEngine(cfg, params, rt=rt, fleet=fleet_cfg(True))
+    paths = PathSpans(cfg)
+    moves = []
+
+    def record_moves(grp):
+        extract = grp.extract_live
+
+        def run(req):
+            out = extract(req)
+            if out is not None:
+                seq = len(req.prompt) + len(req.generated)
+                kv = [t for t in _tensors(out[0]) if t.dim() >= 4]
+                assert {t.dtype for t in kv} == {torch.int8, torch.float32}
+                row = sum(t.numel() * t.element_size() for t in kv)
+                moves.append(dict(
+                    rid=req.rid, seq_len=seq,
+                    priced_bytes=eng.planner.cost.kv_bytes(
+                        seq, cfg, FLEET_WINDOW),
+                    row_bytes=row,
+                    row_bytes_live=row * min(seq, FLEET_WINDOW)
+                    // FLEET_WINDOW))
+            return out
+        grp.extract_live = run
+
+    for grp in eng.groups:
+        paths.hook(grp)
+        record_moves(grp)
+    trace = fleet_trace(F, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    eng.submit(trace)
+    ops.reset_launches()                           # zero just before the run
+    t = time.perf_counter()
+    s = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(ops.launches)                  # read just after
+
+    assert not bool(paths.nonfinite), "fleet: non-finite decode logits"
+    assert eng.completed == len(trace) == s["completed"], s["completed"]
+    assert all(r.done for r in trace)
+    assert all(len(r.generated) == r.max_new_tokens for r in trace)
+    assert eng.useful_tokens == sum(len(r.generated) for r in trace)
+    assert sum(g.stats.prefill_tokens for g in eng.groups) == \
+        sum(len(r.prompt) for r in trace)
+    assert all(r.finish is not None and r.finish >= r.arrival for r in trace)
+    mig = s["migration"]
+    assert mig["steals"] >= 1 and mig["live_migrations"] >= 1, mig
+    assert len(moves) == mig["live_migrations"], moves
+    n_prefill, n_decode = paths.prefill_calls, len(paths.spans["decode"])
+    layers = cfg.num_layers
+    assert launches["quantize_int8"] == 2 * layers * (n_prefill + n_decode), \
+        (launches, n_prefill, n_decode)
+    assert launches["flash_attention"] == layers * n_prefill, launches
+    assert launches["rmsnorm"] > 0, launches
+    secs = paths.seconds()
+    # the same control plane without the model (vec engine): the plans it
+    # makes pricing the int8 cache, and pricing the bf16 one
+    veto = {}
+    for q in (True, False):
+        v = F.FleetEngine(cfg, None, fleet=fleet_cfg(q, "vec"))
+        v.submit(fleet_trace(F, cfg.vocab_size))
+        vm = v.run()["migration"]
+        veto["int8" if q else "bf16"] = dict(
+            live_migrations=vm["live_migrations"],
+            rejected_amortization=vm["rejected_amortization"],
+            stall_ticks_charged=vm["stall_ticks_charged"])
+    assert veto["int8"]["live_migrations"] == mig["live_migrations"], veto
+    groups = s["groups"]
+    summary = dict(
+        arch=cfg.name, layers=layers, groups=FLEET_GROUPS,
+        capacity=FLEET_CAPACITY, window=FLEET_WINDOW, kv_quant=True,
+        link_bandwidth=FLEET_LINK, requests=len(trace),
+        prompt_tokens=sum(len(r.prompt) for r in trace),
+        ticks=s["wall_ticks"], splits=sum(g["splits"] for g in groups),
+        fuses=sum(g["fuses"] for g in groups), efficiency=s["efficiency"],
+        latency_p50=s["latency"]["p50"], latency_p99=s["latency"]["p99"],
+        steals=mig["steals"], live_migrations=mig["live_migrations"],
+        stall_ticks_charged=mig["stall_ticks_charged"], lease=s["lease"],
+        prefill_calls=n_prefill, decode_calls=n_decode,
+        prefill_tok_s=sum(len(r.prompt) for r in trace) / secs["prefill"],
+        decode_tok_s=(eng.useful_tokens - len(trace)) / secs["decode"],
+        prefill_s=secs["prefill"], decode_s=secs["decode"], wall_s=wall,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, moves=moves, planner_by_wire=veto, card=smi)
+    log("fleet", json.dumps(summary))
+    del eng, grp, paths, record_moves      # hooks and groups form a cycle
+    decode_profile(cfg, params, rt)        # launches per int8 decode call
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < 1e9, torch.cuda.memory_allocated()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: path parity — kernels vs plain at full width, 2 layers
+# ---------------------------------------------------------------------------
+
+# (arch, layers, batch, prompt length, engine window, int8 KV cache);
+# recurrentgemma-9b's 5 layers are one repetition and the two remainder
+# layers, and its prompt runs past the 2048-token attention window
+PARITY = [("qwen3-14b", 2, 2, 256, 264, False),
+          ("falcon-mamba-7b", 2, 2, 256, 264, False),
+          ("recurrentgemma-9b", 5, 2, 2100, 2108, False),
+          ("qwen3-14b", 2, 2, 256, 264, True)]
+
+
+def _int8_caches(state):
+    """(codes, scales) of every int8 KV cache in a decode state."""
+    import torch
+    ts = _tensors(state)
+    return ([t for t in ts if t.dtype == torch.int8],
+            [t for t in ts if t.dtype == torch.float32 and t.dim() >= 4])
+
+
+def _cache_diff(a, b):
+    """How far the two paths' int8 caches are apart: their K/V inputs
+    differ by bf16 roundings upstream (the rmsnorm kernel and flash
+    attention round at other points than the plain ops)."""
+    (qa, sa), (qb, sb) = _int8_caches(a), _int8_caches(b)
+    dq = [(x.int() - y.int()).abs() for x, y in zip(qa, qb)]
+    return dict(max_code_diff=max(int(d.max()) for d in dq),
+                codes_differing=sum(int((d != 0).sum()) for d in dq),
+                codes=sum(d.numel() for d in dq),
+                max_scale_rel_diff=max(float(((x - y).abs() / y).max())
+                                       for x, y in zip(sa, sb)))
+
+
+def parity_phase(arch, layers, B, S, window, kv_quant):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as QZ
     from repro_torch.models import transformer as T
 
     cfg = get_config(arch).replace(num_layers=layers)
@@ -536,7 +789,21 @@ def parity_phase(arch, layers, B, S, window):
                           "cuda")
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, S)), device="cuda")
-    rts = [T.Runtime(use_kernels=k) for k in (True, False)]
+    rts = [T.Runtime(use_kernels=k, kv_quant=kv_quant) for k in (True, False)]
+    # every int8 KV write of the kernel path, held to the plain quantizer
+    # on the same K/V rows: codes and scales equal exactly
+    quantize, checked = ops.quantize_int8, {"calls": 0, "rows": 0}
+
+    def checked_quantize(x, floor=1e-12):
+        q, s = quantize(x, floor)
+        wq, ws = QZ.quantize_int8_plain(x, floor)
+        assert torch.equal(q, wq) and torch.equal(s, ws), \
+            f"int8 KV write differs from the plain quantizer at {x.shape}"
+        checked["calls"] += 1
+        checked["rows"] += x.shape[0]
+        return q, s
+
+    ops.quantize_int8 = checked_quantize
     # the final hidden states too: at 2 layers falcon-mamba's tied logits
     # are dominated by each token's own embedding (|logit| ~ d_model), where
     # a bf16 ulp hides what the blocks did
@@ -551,6 +818,7 @@ def parity_phase(arch, layers, B, S, window):
     errs = [float((outs[0][0].float() - outs[1][0].float()).abs().max())]
     absmax = float(outs[1][0].float().abs().max())
     states = [o[1] for o in outs]
+    caches = {"prefill": _cache_diff(*states)} if kv_quant else {}
     nxt = torch.argmax(outs[0][0], dim=-1)[:, None]
     for _ in range(8):
         lg = []
@@ -561,12 +829,19 @@ def parity_phase(arch, layers, B, S, window):
         errs.append(float((lg[0] - lg[1]).abs().max()))
         absmax = max(absmax, float(lg[1].abs().max()))
         nxt = torch.argmax(lg[0], dim=-1)[:, None]   # same tokens to both
+    ops.quantize_int8 = quantize
+    if kv_quant:
+        caches["decode_8"] = _cache_diff(*states)
+        # K and V of each layer, at prefill and at each of the 8 steps
+        assert checked["calls"] == 2 * layers * 9, checked
     tol = PARITY_TOL if arch == "qwen3-14b" else max(PARITY_TOL,
                                                      PARITY_REL * absmax)
     rec = dict(arch=arch, layers=layers, batch=B, prompt=S,
+               kv_quant=kv_quant,
                max_abs_err_prefill=errs[0], max_abs_err_decode=max(errs[1:]),
                tol=tol, logit_absmax=absmax, max_abs_err_hidden=hid_err,
-               hidden_tol=hid_tol)
+               hidden_tol=hid_tol, int8_writes_checked=checked,
+               int8_cache_kernel_vs_plain_path=caches)
     log("parity", json.dumps(rec))
     assert max(errs) <= tol and hid_err <= hid_tol, rec
     del params, outs, states
@@ -603,6 +878,9 @@ def main() -> int:
         by_phase[arch] = serve_phase(arch, n, prompts, window, smi)
         log(f"serve {arch}: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    by_phase["fleet:qwen3-14b"] = fleet_phase(smi)
+    log(f"fleet: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     for case in PARITY:
         parity_phase(*case)
     log(f"parity: {time.perf_counter() - t:.1f} s")
@@ -615,7 +893,9 @@ def main() -> int:
             ("ssm_scan", "linear_scan.cu",
              "src/repro/kernels/linear_scan.py:122"),
             ("rglru_scan", "linear_scan.cu",
-             "src/repro/kernels/linear_scan.py:61")]:
+             "src/repro/kernels/linear_scan.py:61"),
+            ("quantize_int8", "quantize.cu",
+             "src/repro/kernels/quantize.py:45")]:
         rec = recs[name]
         kernels.append(dict(
             name=name, route="cuda",

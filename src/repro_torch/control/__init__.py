@@ -15,11 +15,16 @@ monitor -> predict -> reconfigure loop (§4.1, Fig 7) lives here once:
 * ``controller`` — GroupController (per-part dwell + transition
                    enforcement) and FleetController (chip-wide split-mix
                    rebalancing, including deepening under tail mass).
+* ``offline``    — serve-level predictor training corpus + the Fig 20
+                   feature ablation.
 """
 from repro_torch.control.controller import (ControlState, FleetController,
                                       GroupController)
 from repro_torch.control.features import (SERVE_FEATURES, ArrivalRateTracker,
                                     FeatureVector, ReplayBuffer)
+from repro_torch.control.offline import (build_serve_corpus,
+                                        serve_feature_ablation,
+                                        train_serve_predictor)
 from repro_torch.control.policies import (POLICY_NAMES, Decision, OnlinePolicy,
                                     OraclePolicy, PredictorPolicy,
                                     ReconfigPolicy, ThresholdPolicy,
@@ -30,6 +35,7 @@ from repro_torch.control.space import (ConfigSpace, Topology, balanced, n_parts,
 __all__ = [
     "ControlState", "FleetController", "GroupController",
     "SERVE_FEATURES", "ArrivalRateTracker", "FeatureVector", "ReplayBuffer",
+    "build_serve_corpus", "serve_feature_ablation", "train_serve_predictor",
     "POLICY_NAMES", "Decision", "OnlinePolicy", "OraclePolicy",
     "PredictorPolicy", "ReconfigPolicy", "ThresholdPolicy",
     "hysteresis_toggle", "make_policy",

@@ -17,10 +17,12 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import linear_scan as _ls
+from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import rmsnorm as _rn
 
 launches: Dict[str, int] = {"flash_attention": 0, "rmsnorm": 0,
-                            "ssm_scan": 0, "rglru_scan": 0}
+                            "ssm_scan": 0, "rglru_scan": 0,
+                            "quantize_int8": 0}
 
 
 def reset_launches() -> None:
@@ -81,3 +83,16 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
         launches["ssm_scan"] += 1
         return out
     return _ls.ssm_scan_plain(a, b, c)
+
+
+def quantize_int8(x: torch.Tensor, floor: float = 1e-12
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (T, D) -> (q int8 (T, D), scale f32 (T, 1))."""
+    if x.is_cuda:
+        out = _qz.quantize_int8_cuda(x.contiguous(), floor)
+        launches["quantize_int8"] += 1
+        return out
+    return _qz.quantize_int8_plain(x, floor)
+
+
+dequantize_int8 = _qz.dequantize_int8

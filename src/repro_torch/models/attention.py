@@ -8,6 +8,11 @@ Counterpart of ``repro/models/attention.py``.  Two full-sequence paths:
   * ``kernels.ops.flash_attention`` — the hand-written CUDA kernel, taken
     with ``use_flash=True`` (prefill under ``Runtime.use_kernels``).
 
+Under ``Runtime.kv_quant`` every K/V vector written into the cache, at
+prefill and at each decode step, is quantized to int8 by
+``kernels.ops.quantize_int8`` when ``use_kernels`` is on (the reference
+computes the same function inline in jnp).
+
 ``decode_attention`` scores one new token against the ring-buffer KV cache
 in torch ops (the reference has no Pallas kernel there).  The reference's
 ``shard_map`` sequence-parallel decode is not ported yet (ROADMAP queue 1,
@@ -29,6 +34,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.quantize import quantize_int8_plain
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -187,18 +193,19 @@ class KVCache(NamedTuple):
     v_scale: Any = None
 
 
-def _quantize_kv(x: torch.Tensor):
+def _quantize_kv(x: torch.Tensor, use_kernels: bool = False):
     """(.., hd) -> int8 payload + per-vector f32 scale.
 
     The floor is 1e-8, as in the reference's ``_quantize_kv`` (not the
-    int8 kernel's 1e-12); ``torch.round`` rounds half to even, as
-    ``jnp.round`` does.
+    int8 kernel's 1e-12).  ``use_kernels`` quantizes the vectors as rows
+    through ``kernel_ops.quantize_int8`` (the CUDA kernel on a CUDA
+    tensor), which computes the same bits as the plain version.
     """
-    xf = x.float()
-    amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
-    return q, scale
+    if not use_kernels:
+        return quantize_int8_plain(x, floor=1e-8)
+    q, scale = kernel_ops.quantize_int8(x.reshape(-1, x.shape[-1]),
+                                        floor=1e-8)
+    return q.reshape(x.shape), scale.reshape(x.shape[:-1] + (1,))
 
 
 def _dequantize_kv(q: torch.Tensor, scale, dtype=torch.float32) -> torch.Tensor:
@@ -240,7 +247,7 @@ def _write_slot_(buf, new_val, bidx, clamped, in_range) -> None:
 
 
 def _decode_core(q, cache: KVCache, new_k, new_v, pos, *, W, offset,
-                 s_loc, update):
+                 s_loc, update, use_kernels: bool = False):
     """Scores one token against the cache; writes its K/V into the cache.
 
     q: (B,1,H,hd) -> internally (B,KV,G,hd); cache arrays: (B,s_loc,KV,*).
@@ -261,8 +268,8 @@ def _decode_core(q, cache: KVCache, new_k, new_v, pos, *, W, offset,
         clamped = torch.clamp(write_slot, 0, s_loc - 1)
         bidx = torch.arange(B, device=dev)
         if quant:
-            nk_q, nk_s = _quantize_kv(new_k[:, 0])
-            nv_q, nv_s = _quantize_kv(new_v[:, 0])
+            nk_q, nk_s = _quantize_kv(new_k[:, 0], use_kernels)
+            nv_q, nv_s = _quantize_kv(new_v[:, 0], use_kernels)
             _write_slot_(k_cache, nk_q, bidx, clamped, in_range)
             _write_slot_(v_cache, nv_q, bidx, clamped, in_range)
             _write_slot_(ks, nk_s, bidx, clamped, in_range)
@@ -310,7 +317,8 @@ def decode_attention(params, cache: KVCache, x_new: torch.Tensor,
     q, new_k, new_v = _project_qkv(params, x_new, cfg, positions,
                                    use_kernels=use_kernels)
     out, new_cache = _decode_core(q, cache, new_k, new_v, pos, W=W, offset=0,
-                                  s_loc=W, update=update)
+                                  s_loc=W, update=update,
+                                  use_kernels=use_kernels)
     out = out.reshape(B, 1, -1) @ params["wo"]
     return out, new_cache
 
@@ -345,7 +353,7 @@ def prefill_cache(params, x, positions, cfg: ModelConfig,
         pad = (0, 0, 0, 0, 0, W - S)
         k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
     if quant:
-        kq, ksc = _quantize_kv(k)
-        vq, vsc = _quantize_kv(v)
+        kq, ksc = _quantize_kv(k, use_kernels)
+        vq, vsc = _quantize_kv(v, use_kernels)
         return KVCache(k=kq, v=vq, k_scale=ksc, v_scale=vsc)
     return KVCache(k=k.contiguous(), v=v.contiguous())

@@ -182,7 +182,8 @@ class ReconfigurableGroup:
                              "(each half needs at least one decode slot)")
         self.cfg = model_cfg
         self.params = params
-        self.device = params["embed"]["table"].device
+        self.device = (params["embed"]["table"].device if params is not None
+                       else None)        # the vec engine has no params
         self.rt = rt
         self.acfg = amoeba
         self.capacity = capacity

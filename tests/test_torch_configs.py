@@ -51,7 +51,7 @@ def test_h100_is_the_data_sheet_part():
 
 def test_import_leaves_jax_and_reference_out():
     code = (
-        "import sys, pkgutil, importlib, repro_torch\n"
+        "import sys, pkgutil, importlib, repro_torch, repro_torch.fleet\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"

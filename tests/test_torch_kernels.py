@@ -7,7 +7,11 @@ draws rounded to nearest even on both sides, so both see identical bits.
 Tolerances are those of tests/test_kernels.py: 2e-5 in float32 (sums in
 another order), 2e-2 in bfloat16 (one bf16 rounding of the output is
 2^-8 relative); the scans 1e-5 (RG-LRU) and 1e-4 (selective scan, whose
-contraction over N sums in another order) relative and absolute.
+contraction over N sums in another order) relative and absolute.  The
+int8 quantizer: at most 1 code and scales within rtol 1e-6 against the
+reference, with the reconstruction bound of tests/test_kernels.py; the
+CUDA kernel does the plain version's IEEE operations, so on the card its
+codes and scales must be equal exactly.
 
 The CUDA tests import no JAX, so the GPU machine runs this file alone:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py``.
@@ -20,6 +24,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import linear_scan as LS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import quantize as QZ  # noqa: E402
 from repro_torch.kernels import rmsnorm as RN  # noqa: E402
 
 FLASH_SHAPES = [
@@ -45,6 +50,12 @@ NORM_CASES = [(T, D, dt) for T, D in [(16, 128), (37, 256), (100, 64),
 RGLRU_CASES = [(1, 64, 64, 32, 32), (2, 100, 96, 32, 64), (1, 257, 33, 64, 16)]
 SSM_CASES = [(1, 64, 64, 8, 32, 32), (2, 77, 96, 16, 32, 64),
              (1, 130, 48, 4, 64, 48)]
+
+
+# (T, D, dtype, floor): tests/test_kernels.py's sweep, at the TPU kernel's
+# floor and at the KV cache's
+QUANT_CASES = [(T, D, dt, fl) for T, D in [(8, 64), (33, 257), (128, 1024)]
+               for dt in ("float32", "bfloat16") for fl in (1e-12, 1e-8)]
 
 
 def _tol(dtype):
@@ -153,6 +164,49 @@ def test_ssm_scan_plain_matches_reference(B, S, D, N, bs, bd):
                                    rtol=1e-4)
 
 
+def _quant_input(T, D):
+    """normal * 3 (tests/test_kernels.py), with a zero row and a row whose
+    amax lies between the two floors, so that each floor shows."""
+    x = np.random.default_rng(4).standard_normal((T, D)).astype(np.float32)
+    x *= 3.0
+    x[1] = 0.0
+    x[2] *= np.float32(1e-9) / np.abs(x[2]).max()      # amax 1e-9
+    return x
+
+
+@pytest.mark.parametrize("T,D,dtype,floor", QUANT_CASES)
+def test_quantize_int8_plain_matches_reference(T, D, dtype, floor):
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from repro.kernels import ops as jops, ref as jref
+    from repro.models import attention as jattn
+    x = _quant_input(T, D)
+    xt = _t(x, dtype)
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    q, s = QZ.quantize_int8_plain(xt, floor)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert q.shape == (T, D) and s.shape == (T, 1)
+    if floor == 1e-12:      # the TPU kernel's floor: its oracle and kernel
+        wants = [jref.quantize_int8(jx), jops.quantize_int8(jx, bt=16)]
+    else:                   # the KV cache's floor: the reference's inline one
+        wants = [jattn._quantize_kv(jx)]
+    for wq, ws in wants:
+        diff = np.abs(q.numpy().astype(np.int32)
+                      - np.asarray(wq).astype(np.int32))
+        assert diff.max() <= 1
+        np.testing.assert_allclose(s.numpy(), np.asarray(ws), rtol=1e-6)
+    xf = xt.float().numpy()
+    # reconstruction error bounded by half a quantization step per row
+    err = np.abs(QZ.dequantize_int8(q, s).numpy() - xf).max(axis=1)
+    bound = np.maximum(np.abs(xf).max(axis=1), np.float32(floor)) / 127.0
+    assert np.all(err <= bound * 1.01)
+    assert not q[1].any()
+    assert float(s[1, 0]) == np.float32(floor) / np.float32(127.0)
+    tiny = np.float32(np.abs(xf[2]).max())               # ~1e-9
+    assert 1e-12 < tiny < 1e-8
+    assert float(s[2, 0]) == max(tiny, np.float32(floor)) / np.float32(127.0)
+
+
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.reset_launches()
     q, k, v = (_t(a, "float32") for a in _flash_inputs(1, 8, 8, 2, 1, 32))
@@ -160,8 +214,11 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.rmsnorm(q, torch.ones(32))
     ops.rglru_scan(*(torch.from_numpy(x) for x in _rglru_inputs(1, 4, 8)))
     ops.ssm_scan(*(torch.from_numpy(x) for x in _ssm_inputs(1, 4, 8, 4)))
+    q, s = ops.quantize_int8(q.reshape(-1, 32), floor=1e-8)
+    assert q.dtype == torch.int8 and s.shape == (16, 1)
     assert ops.launches == {"flash_attention": 0, "rmsnorm": 0,
-                            "ssm_scan": 0, "rglru_scan": 0}
+                            "ssm_scan": 0, "rglru_scan": 0,
+                            "quantize_int8": 0}
 
 
 def test_cuda_launchers_raise_on_cpu_tensors():
@@ -176,13 +233,16 @@ def test_cuda_launchers_raise_on_cpu_tensors():
         LS.rglru_scan_cuda(x, x)
     with pytest.raises(ValueError, match="CUDA device"):
         LS.ssm_scan_cuda(x[..., None], x[..., None], x[:, :, :1])
+    with pytest.raises(ValueError, match="CUDA device"):
+        QZ.quantize_int8_cuda(torch.zeros(4, 8))
 
 
 def test_build_names_each_library_by_its_source():
     from repro_torch.kernels import _build
-    assert _build.sources() == ["flash_attention", "linear_scan", "rmsnorm"]
+    assert _build.sources() == ["flash_attention", "linear_scan", "quantize",
+                                "rmsnorm"]
     paths = [_build.lib_path(n) for n in _build.sources()]
-    assert len(set(paths)) == 3 and all(p.parent == _build.BUILD
+    assert len(set(paths)) == 4 and all(p.parent == _build.BUILD
                                         for p in paths)
     assert paths == [_build.lib_path(n) for n in _build.sources()]
 
@@ -246,6 +306,22 @@ def test_ssm_scan_cuda_matches_plain(cuda, B, S, D, N, bs, bd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,D,dtype,floor",
+                         QUANT_CASES + [(73728, 128, "bfloat16", 1e-8),
+                                        (64, 128, "bfloat16", 1e-8),
+                                        (5, 300, "float32", 1e-12),
+                                        (3, 1, "bfloat16", 1e-8)])
+def test_quantize_int8_cuda_matches_plain_exactly(cuda, T, D, dtype, floor):
+    xt = _t(_quant_input(T, D), dtype, cuda)
+    ops.reset_launches()
+    q, s = ops.quantize_int8(xt, floor)
+    torch.cuda.synchronize()
+    assert ops.launches["quantize_int8"] == 1
+    wq, ws = QZ.quantize_int8_plain(xt, floor)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)          # head_dim 48
     with pytest.raises(ValueError, match="head_dim"):
@@ -260,3 +336,9 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         LS.rglru_scan_cuda(a[..., 0].double(), a[..., 0].double())
     with pytest.raises(ValueError, match="contiguous"):
         LS.rglru_scan_cuda(a[..., 0].transpose(1, 2), a[..., 0].transpose(1, 2))
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        QZ.quantize_int8_cuda(x)
+    with pytest.raises(ValueError, match="contiguous"):
+        QZ.quantize_int8_cuda(torch.zeros(8, 4, device=cuda).t())
+    with pytest.raises(ValueError, match=r"\(T, D\)"):
+        QZ.quantize_int8_cuda(torch.zeros(2, 4, 8, device=cuda))
