@@ -64,8 +64,9 @@ NORM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # another order
 SCAN_TOL = {"rglru_scan": 1e-5, "ssm_scan": 1e-4}
 # prefill/decode logits, kernels vs plain, bf16 at full width: the two
-# paths round at different points (the flash kernel keeps P in fp32 where
-# chunked attention casts it to bf16; rmsnorm sums in another order).
+# paths round at different points (the flash kernel rounds its tile of P to
+# bf16 and sums in another order than chunked attention; rmsnorm sums in
+# another order).
 # qwen3-14b's logits are O(1-4); a reduced-width CPU run of the same
 # comparison gave max |diff| 1.6e-2, so 0.1 leaves room for 40x wider
 # matmuls.  falcon-mamba-7b ties its unembedding to an N(0, 1) table, so
@@ -119,6 +120,73 @@ def bound(flops: float, nbytes: float, peak: float, hw):
 
 
 # ---------------------------------------------------------------------------
+# Phase 1: build
+# ---------------------------------------------------------------------------
+
+KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_kernel", "rmsnorm_kernel",
+                "ssm_scan_kernel", "rglru_scan_kernel", "quantize_int8_kernel")
+
+
+def _demangle(cufilt, names):
+    """Readable kernel names, through the toolkit's ``cu++filt``, without
+    namespaces' noise, casts or the parameter list:
+    ``rmsnorm_kernel<__nv_bfloat16, float, 128, 5>``."""
+    import re
+    out = subprocess.run([str(cufilt)], input="\n".join(names),
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.splitlines()
+
+    def short(d):
+        d = re.sub(r"\((?:unsigned )?int\)|<unnamed>::|"
+                   r"\(anonymous namespace\)::", "", d.strip())
+        if d.endswith(")"):                   # cut the parameter list
+            depth = 0
+            for i in range(len(d) - 1, -1, -1):
+                depth += {")": 1, "(": -1}.get(d[i], 0)
+                if depth == 0:
+                    d = d[:i]
+                    break
+        return d.removeprefix("void ")
+    return {m: short(d) for m, d in zip(names, out)}
+
+
+def build_report(_build, name):
+    """One source's build: its nvcc wall time, each kernel's registers,
+    spills and shared memory from ``-Xptxas -v``, and its tensor-core and
+    TMA instructions counted in the SASS (``cuobjdump -sass``).  The bf16
+    flash kernel must hold HGMMA instructions: it runs on the tensor
+    cores."""
+    import re
+    text = _build.build_log(name)
+    secs = re.search(r"build_seconds ([0-9.]+)", text)
+    kernels, cur = {}, None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            cur = re.search(r"function '([^']+)", ln).group(1)
+            kernels[cur] = [None, 0, 0]          # registers, smem, spills
+        elif cur and re.search(r"Used \d+ registers", ln):
+            regs = re.search(r"Used (\d+) registers", ln)
+            smem = re.search(r"(\d+) bytes smem", ln)
+            kernels[cur][:2] = [int(regs.group(1)),
+                                int(smem.group(1)) if smem else 0]
+        elif cur and "spill stores" in ln:
+            kernels[cur][2] = int(re.search(r"(\d+) bytes spill stores",
+                                            ln).group(1))
+    nvcc = Path(_build._nvcc())
+    sass = subprocess.run([str(nvcc.with_name("cuobjdump")), "-sass",
+                           str(_build.lib_path(name))], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    ops = {op: len(re.findall(rf"\b{op}\b", sass))
+           for op in ("HGMMA", "HMMA", "UTMALDG", "FFMA")}
+    if name == "flash_attention":
+        assert ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, ops
+    label = _demangle(nvcc.with_name("cu++filt"), list(kernels))
+    return dict(build_s=float(secs.group(1)) if secs else None,
+                kernels=len(kernels), sass=ops,
+                regs_smem_spills={label[k]: v for k, v in kernels.items()})
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -168,7 +236,8 @@ def flash_case(B, H, KV, S, hd, dtype, causal, window, hw, flush):
     rec = dict(shape=f"B{B} H{H} KV{KV} S{S} hd{hd} {dtype} causal={causal} "
                f"window={window}", max_abs_err=err, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by, tflops=flops / ms / 1e9)
+               bound_by=bound_by, tflops=flops / ms / 1e9,
+               bound_share=bound_ms / ms, library_tflops=flops / library_ms / 1e9)
     log("flash_attention", json.dumps(rec))
     return rec
 
@@ -200,7 +269,8 @@ def norm_case(T_, D, dtype, hw, flush):
     bound_ms, bound_by = bound(flops, nbytes, FP32_PEAK, hw)
     rec = dict(shape=f"T{T_} D{D} {dtype}", max_abs_err=err, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by, gbps=nbytes / ms / 1e6)
+               bound_by=bound_by, gbps=nbytes / ms / 1e6,
+               bound_share=bound_ms / ms)
     log("rmsnorm", json.dumps(rec))
     return rec
 
@@ -310,6 +380,8 @@ def kernel_phase(hw):
         for dtype in ("bfloat16", "float32"):
             flash[(S, dtype)] = flash_case(1, 40, 8, S, 128, dtype, True,
                                            None, hw, flush)
+    # the qwen3-14b prefill call's own shape (B4 S2048)
+    flash_case(4, 40, 8, 2048, 128, "bfloat16", True, None, hw, flush)
     flash_case(1, 40, 8, 2048, 128, "bfloat16", True, 512, hw, flush)
     flash_case(1, 40, 8, 333, 128, "bfloat16", True, None, hw, flush)
     flash_case(2, 4, 2, 512, 32, "bfloat16", True, None, hw, flush)
@@ -319,6 +391,10 @@ def kernel_phase(hw):
     flash_case(2, 4, 1, 333, 256, "float32", True, 48, hw, flush)
     norm = norm_case(4096, 5120, "bfloat16", hw, flush)
     norm_case(4096 * 40, 128, "bfloat16", hw, flush)
+    # the recurrent models' block norms, D 4096: falcon-mamba-7b's B4 S2048
+    # and recurrentgemma-9b's B2 S3072 prefill rows
+    norm_case(4 * 2048, 4096, "bfloat16", hw, flush)
+    norm_case(2 * 3072, 4096, "bfloat16", hw, flush)
     norm_case(37, 256, "float32", hw, flush)
     ssm = ssm_case(1, 2048, 8192, 16, hw, flush)    # falcon-mamba, one row
     ssm_case(2, 333, 4100, 16, hw, flush)
@@ -570,8 +646,7 @@ def prefill_profile(cfg, params, rt, B, S, window):
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
     ours = {name: sum(e.self_device_time_total for e in kern
                       if name in e.key) / 1e3
-            for name in ("flash_fwd_kernel", "rmsnorm_kernel",
-                         "ssm_scan_kernel", "rglru_scan_kernel")}
+            for name in KERNEL_NAMES}
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     rec = dict(arch=cfg.name, batch=B, prompt=S, wall_ms=wall_ms,
                device_ms=dev_ms if dev_ms > 0 else "not measured",
@@ -865,9 +940,7 @@ def main() -> int:
     _build.build_all()
     log(f"build: {time.perf_counter() - t:.1f} s")
     for name in _build.sources():
-        regs = [ln.strip() for ln in _build.build_log(name).splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"build {name}:", " | ".join(sorted(set(regs))))
+        log(f"build {name}:", json.dumps(build_report(_build, name)))
 
     t = time.perf_counter()
     recs = kernel_phase(H100)

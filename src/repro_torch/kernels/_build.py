@@ -6,7 +6,8 @@ into ``build/lib<name>-<hash>.so`` at the repository root, with one
 per source; :func:`build_all` starts all of them together.  The file name
 carries a hash of the source, so an edited kernel is rebuilt and a stale
 library is never loaded.  The compiler's own output (``-Xptxas -v``:
-registers, shared memory, spills) is kept beside it as ``.log``.
+registers, shared memory, spills) and the build's wall time are kept
+beside it as ``.log``.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine class has no ``nvcc``.  A failed build raises.
@@ -18,6 +19,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
 
@@ -61,13 +64,14 @@ def _start(name: str):
     cmd = [_nvcc(), *ARCH_FLAGS, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out, cmd
+    return proc, tmp, out, cmd, time.perf_counter()
 
 
 def _finish(name: str, job) -> None:
-    proc, tmp, out, cmd = job
+    proc, tmp, out, cmd, t0 = job
     log, _ = proc.communicate()
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + log)
+    out.with_suffix(".log").write_text(
+        f"{' '.join(cmd)}\nbuild_seconds {time.perf_counter() - t0:.2f}\n{log}")
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu "
@@ -78,13 +82,11 @@ def _finish(name: str, job) -> None:
 def build_all() -> Dict[str, Path]:
     """Compile every kernel source that has no current library, in parallel."""
     jobs = {n: _start(n) for n in sources()}
-    errors = []
-    for name, job in jobs.items():
-        if job is not None:
-            try:
-                _finish(name, job)
-            except RuntimeError as e:
-                errors.append(str(e))
+    # one waiting thread a job, so each log's time is its own build's
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        done = [pool.submit(_finish, n, j) for n, j in jobs.items()
+                if j is not None]
+    errors = [str(f.exception()) for f in done if f.exception() is not None]
     if errors:
         raise RuntimeError("\n".join(errors))
     return {n: lib_path(n) for n in jobs}

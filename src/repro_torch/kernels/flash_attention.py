@@ -1,9 +1,12 @@
 """Head-major flash attention: the CUDA kernel's launcher and its plain version.
 
-Replaces ``repro/kernels/flash_attention.py::flash_attention_hm``.  The
-kernel (``csrc/flash_attention.cu``) runs one thread block per (b, h,
-64-row q tile) and loops over 64-key tiles with an fp32 online softmax,
-skipping tiles the causal/window mask removes.  ``flash_attention_hm_plain``
+Replaces ``repro/kernels/flash_attention.py::flash_attention_hm``.  For
+bf16 the kernel (``csrc/flash_attention.cu``) runs on the tensor cores:
+one block per (b, h, 128-row q tile), a producer warp feeding K/V tiles
+by TMA through an mbarrier ring to two consumer warpgroups that run
+``wgmma`` for Q·Kᵀ and P·V with an fp32 online softmax in registers,
+skipping tiles the causal/window mask removes.  fp32 takes the same
+file's fp32-FMA kernel (no TF32).  ``flash_attention_hm_plain``
 is the full-materialization version of ``repro/kernels/ref.py``
 (``flash_attention``) in the head-major layout; the tests and
 ``chip_smoke.py`` hold the kernel against it.
@@ -77,6 +80,10 @@ def flash_attention_hm_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention_hm_cuda needs contiguous q, k, v")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention_hm_cuda needs 16-byte aligned "
+                         "bf16 q, k, v (TMA)")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     out = torch.empty_like(q)

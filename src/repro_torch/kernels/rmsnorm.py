@@ -2,7 +2,9 @@
 
 Replaces ``repro/kernels/rmsnorm.py::rmsnorm_pallas``.  The kernel
 (``csrc/rmsnorm.cu``) is bound by bytes on the H100: it reads each row once
-and writes it once.  ``rmsnorm_plain`` computes the same function in torch
+with 16-byte vector loads into registers and writes it once with 16-byte
+stores (a scalar branch of the same kernel takes rows whose width or
+alignment does not allow that).  ``rmsnorm_plain`` computes the same function in torch
 ops (the reference ``repro/kernels/ref.py::rmsnorm``); the tests and
 ``chip_smoke.py`` hold the kernel against it.
 """

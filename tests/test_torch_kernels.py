@@ -16,6 +16,8 @@ codes and scales must be equal exactly.
 The CUDA tests import no JAX, so the GPU machine runs this file alone:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py``.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -38,11 +40,41 @@ MASKS = [(True, None), (False, None), (True, 48)]
 FLASH_CASES = [(*shape, dt, c, w) for shape in FLASH_SHAPES
                for dt in ("float32", "bfloat16") for c, w in MASKS
                if not (shape[1] != shape[2] and c)]   # causal cross-shape
-# (8, 5120): the block norms' width, which takes the kernel's 256-thread
-# block reduction; the narrower rows take its one-warp-per-row branch
+# (8, 5120) and (8, 4096): the block norms' widths, which take the
+# kernel's 128-thread vector rows in bf16 (its scalar branch in fp32); the
+# narrower rows share a warp; D 100 and 257 take the scalar branch (not a
+# multiple of the 16-byte vector)
 NORM_CASES = [(T, D, dt) for T, D in [(16, 128), (37, 256), (100, 64),
-                                      (8, 5120)]
+                                      (8, 5120), (8, 4096), (5, 100),
+                                      (3, 257)]
               for dt in ("float32", "bfloat16")]
+# the CUDA test: NORM_CASES and the kernel's edges (the path's widths and
+# the scalar branch at 1, 8 and 4096 rows), each with an fp32 and a bf16
+# scale
+NORM_SWEEP = list(dict.fromkeys(
+    (T, D, dt, sdt) for T, D, dt in NORM_CASES + [
+        (T, D, dt) for D in (128, 256, 4096, 5120, 100, 257)
+        for T in (1, 8, 4096) for dt in ("float32", "bfloat16")]
+    for sdt in ("float32", "bfloat16")))
+
+# the bf16 tensor-core kernel's edges, beyond FLASH_CASES: Sq and Skv not
+# multiples of the 128-row q tile or the kv tile (128 keys; 64 at hd 128,
+# 32 at hd 256),
+# windows that end inside a tile, GQA groups G = H / KV of 1, 5 and 16,
+# every head dim, B > 1
+FLASH_EDGES = [
+    (1, 333, 333, 40, 8, 128, "bfloat16", True, None),     # qwen3's G = 5
+    (2, 333, 333, 10, 2, 128, "bfloat16", True, 77),
+    (2, 33, 128, 16, 1, 128, "bfloat16", False, None),     # G = 16
+    (1, 33, 128, 2, 2, 32, "bfloat16", False, None),       # G = 1
+    (2, 200, 200, 4, 4, 32, "bfloat16", True, 50),
+    (1, 300, 300, 8, 8, 64, "bfloat16", True, None),
+    (2, 129, 129, 6, 3, 64, "bfloat16", True, 100),
+    (1, 333, 333, 16, 1, 256, "bfloat16", True, 100),      # recurrentgemma
+    (2, 33, 128, 16, 1, 256, "bfloat16", False, None),
+    (1, 1000, 1000, 16, 1, 256, "bfloat16", True, 300),
+    (2, 520, 520, 40, 8, 128, "bfloat16", False, None),
+]
 
 
 # (B, S, W, bs, bw) and (B, S, D, N, bs, bd): the sweeps of
@@ -86,6 +118,57 @@ def _flash_inputs(B, S, Skv, H, KV, hd):
     return _draw(0, (B, S, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd))
 
 
+def _flash_tiled_bf16(q, k, v, causal, window):
+    """What the bf16 CUDA kernel computes, tile by tile, in torch on the
+    CPU: 128-row q tiles split into two 64-row halves, kv tiles of 128 keys
+    (64 at hd 128, 32 at hd 256) over the tiles the masks leave, scores in fp32 from the
+    bf16 inputs with the scale applied after Q·Kᵀ, an online softmax in
+    exp2 with the -1e30 sentinel, and P rounded to bf16 before P·V.
+
+    q: (B, S, H, hd); k, v: (B, Skv, KV, hd), bf16 -> (B, S, H, hd) bf16.
+    """
+    B, S, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    bk = {256: 32, 128: 64}.get(hd, 128)
+    neg = -1e30
+    c = math.log2(math.e) / math.sqrt(hd)
+    qh, kh, vh = (t.transpose(1, 2).float() for t in (q, k, v))
+    out = torch.zeros(B, H, S, hd)
+    for q_lo in range(0, S, 128):
+        k_end = min(Skv, q_lo + 128) if causal else Skv
+        k_start = max(0, q_lo - window + 1) if window else 0
+        for qa in range(q_lo, min(q_lo + 128, S), 64):
+            rows = torch.arange(qa, min(qa + 64, S))
+            qt = qh[:, :, rows]                        # (B, H, r, hd)
+            m = torch.full((B, H, len(rows), 1), neg)
+            l = torch.zeros(B, H, len(rows), 1)
+            acc = torch.zeros(B, H, len(rows), hd)
+            for t in range(k_start // bk, -(-k_end // bk)):
+                k_lo = t * bk
+                if causal and k_lo > qa + 63:
+                    continue
+                if window and k_lo + bk - 1 <= qa - window:
+                    continue
+                keys = torch.arange(k_lo, min(k_lo + bk, Skv))
+                kt = kh[:, :, keys].repeat_interleave(H // KV, dim=1)
+                vt = vh[:, :, keys].repeat_interleave(H // KV, dim=1)
+                s = (qt @ kt.transpose(-1, -2)) * c
+                ok = torch.ones(len(rows), len(keys), dtype=torch.bool)
+                if causal:
+                    ok &= keys[None, :] <= rows[:, None]
+                if window:
+                    ok &= keys[None, :] > rows[:, None] - window
+                s = torch.where(ok, s, torch.full_like(s, neg))
+                m_cur = torch.maximum(m, s.amax(-1, keepdim=True))
+                corr = torch.exp2(m - m_cur)
+                p = torch.exp2(s - m_cur)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + p.bfloat16().float() @ vt
+                m = m_cur
+            out[:, :, rows] = acc / torch.clamp(l, min=1e-30)
+    return out.to(q.dtype).transpose(1, 2)
+
+
 @pytest.mark.parametrize("B,S,Skv,H,KV,hd,dtype,causal,window", FLASH_CASES)
 def test_flash_plain_matches_reference(B, S, Skv, H, KV, hd, dtype, causal,
                                        window):
@@ -103,6 +186,26 @@ def test_flash_plain_matches_reference(B, S, Skv, H, KV, hd, dtype, causal,
                                              window=window), np.float32)
     tol = _tol(dtype)
     np.testing.assert_allclose(got, pallas, atol=tol, rtol=tol)
+    np.testing.assert_allclose(got, oracle, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize(
+    "B,S,Skv,H,KV,hd,dtype,causal,window",
+    [c for c in FLASH_CASES if c[6] == "bfloat16"] + FLASH_EDGES)
+def test_flash_bf16_tiling_fits_the_reference(B, S, Skv, H, KV, hd, dtype,
+                                              causal, window):
+    """The bf16 kernel's tiling and rounding (P in bf16 before P·V) stays
+    within the bf16 tolerance of the reference, before any card runs it."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from repro.kernels import ref as jref
+    q, k, v = _flash_inputs(B, S, Skv, H, KV, hd)
+    got = _np(_flash_tiled_bf16(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                                causal, window))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    oracle = np.asarray(jref.flash_attention(jq, jk, jv, causal=causal,
+                                             window=window), np.float32)
+    tol = _tol(dtype)
     np.testing.assert_allclose(got, oracle, atol=tol, rtol=tol)
 
 
@@ -248,7 +351,8 @@ def test_build_names_each_library_by_its_source():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,Skv,H,KV,hd,dtype,causal,window", FLASH_CASES)
+@pytest.mark.parametrize("B,S,Skv,H,KV,hd,dtype,causal,window",
+                         FLASH_CASES + FLASH_EDGES)
 def test_flash_cuda_matches_plain(cuda, B, S, Skv, H, KV, hd, dtype, causal,
                                   window):
     q, k, v = (_t(a, dtype, cuda) for a in _flash_inputs(B, S, Skv, H, KV, hd))
@@ -264,15 +368,15 @@ def test_flash_cuda_matches_plain(cuda, B, S, Skv, H, KV, hd, dtype, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,D,dtype", NORM_CASES)
-def test_rmsnorm_cuda_matches_plain(cuda, T, D, dtype):
+@pytest.mark.parametrize("T,D,dtype,sdtype", NORM_SWEEP)
+def test_rmsnorm_cuda_matches_plain(cuda, T, D, dtype, sdtype):
     x, sc = _draw(3, (T, D), (D,))
-    xt, st = _t(x, dtype, cuda), _t(sc, "float32", cuda)
+    xt, st = _t(x, dtype, cuda), _t(sc, sdtype, cuda)
     ops.reset_launches()
     got = ops.rmsnorm(xt, st)
     torch.cuda.synchronize()
     assert ops.launches["rmsnorm"] == 1
-    tol = _tol(dtype)
+    tol = _tol(dtype) if dtype == "bfloat16" else 1e-5
     np.testing.assert_allclose(_np(got), _np(RN.rmsnorm_plain(xt, st)),
                                atol=tol, rtol=tol)
 
@@ -326,6 +430,10 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 8, 48, device=cuda)          # head_dim 48
     with pytest.raises(ValueError, match="head_dim"):
         FA.flash_attention_hm_cuda(q, q[:, :1], q[:, :1])
+    flat = torch.zeros(2 * 8 * 64 + 8, device=cuda, dtype=torch.bfloat16)
+    q = flat[1:1 + 2 * 8 * 64].view(1, 2, 8, 64)       # 2 bytes off 16
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention_hm_cuda(q, q, q)
     x = torch.zeros(4, 8, device=cuda, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32/bfloat16"):
         RN.rmsnorm_cuda(x, torch.ones(8, device=cuda))
