@@ -34,7 +34,13 @@ Phases (every failure exits nonzero; no phase's failure is caught):
 5. parity  — full width, bf16, reduced depth (qwen3-14b and falcon-mamba-7b
              at 2 layers, recurrentgemma-9b at 5, qwen3-14b with the int8
              KV cache): prefill and 8 decode-step logits with
-             ``use_kernels=True`` against ``use_kernels=False``.
+             ``use_kernels=True`` against ``use_kernels=False``.  Then one
+             full-width falcon-mamba SSM block and one recurrentgemma
+             RG-LRU block in float32 at B1 S2048, ``use_kernel=True``
+             against the chunked torch scan, on the output and the final
+             state; and the peak memory one full-width SSM block adds at
+             B4 S2048 through the fused scan, which must stay below one
+             fp32 (4, 2048, 8192, 16) tensor.
 
 The line before the last is the card's name and power limit, the one
 before that the kernels' JSON record, and the last line
@@ -57,12 +63,21 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 # float32 math outside the tensor cores, NVIDIA H100 SXM data sheet
 FP32_PEAK = 67e12
+# the SFU's ex2 (one a fp32 exp): 16 a clock an SM for compute capability
+# 9.0 (CUDA C++ Programming Guide, arithmetic instruction throughput), 132
+# SMs at the H100 SXM's 1.98 GHz boost clock
+SFU_RATE = 16 * 132 * 1.98e9
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 NORM_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # scans against their step-by-step plain versions, relative and absolute,
-# as tests/test_kernels.py: h matches to rounding; y's sum over N runs in
-# another order
+# as tests/test_kernels.py: the selective scans' h matches to rounding and
+# y's sum over N runs in another order; the RG-LRU kernel's chunk carries
+# reassociate the recurrence
 SCAN_TOL = {"rglru_scan": 1e-5, "ssm_scan": 1e-4}
+# one full-width recurrent block in float32, kernel vs the chunked torch
+# scan, relative to each compared tensor's largest magnitude: the matmuls
+# are the same on both sides, only the scans' orders of operations differ
+BLOCK_TOL = 1e-4
 # prefill/decode logits, kernels vs plain, bf16 at full width: the two
 # paths round at different points (the flash kernel rounds its tile of P to
 # bf16 and sums in another order than chunked attention; rmsnorm sums in
@@ -112,9 +127,30 @@ def time_ms(fn, reps: int = 15, flush=None) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float, peak: float, hw):
-    """(bound_ms, bound_by): the larger of operations/peak and bytes/rate."""
-    t_ops, t_bytes = flops / peak, nbytes / hw.hbm_bandwidth
+def device_ms(fn, key: str, n: int = 10) -> float:
+    """The kernel's own device time a call (torch.profiler, kernels whose
+    name holds ``key``), over ``n`` calls enqueued back to back: the CUDA
+    events of ``time_ms`` around one call also hold whatever part of the
+    wrapper's host time the card waits out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and key in e.key)
+    return us / 1e3 / n if us > 0 else "not measured"
+
+
+def bound(flops: float, nbytes: float, peak: float, hw, exps: float = 0):
+    """(bound_ms, bound_by): the larger of operations/peak (``exps`` fp32
+    exponentials at the SFU's rate, if that is longer) and bytes/rate."""
+    t_ops = max(flops / peak, exps / SFU_RATE)
+    t_bytes = nbytes / hw.hbm_bandwidth
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -124,7 +160,8 @@ def bound(flops: float, nbytes: float, peak: float, hw):
 # ---------------------------------------------------------------------------
 
 KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_kernel", "rmsnorm_kernel",
-                "ssm_scan_kernel", "rglru_scan_kernel", "quantize_int8_kernel")
+                "selective_scan_kernel", "ssm_scan_kernel",
+                "rglru_scan_lookback", "quantize_int8_kernel")
 
 
 def _demangle(cufilt, names):
@@ -287,7 +324,8 @@ def _scan_check(name, got, want):
 
 def rglru_case(B, S, W, hw, flush):
     """RG-LRU scan: no single PyTorch call computes a linear recurrence,
-    so there is no library time."""
+    so there is no library time.  The timed call includes the wrapper's
+    zeroed flags (one small memset)."""
     import torch
     from repro_torch.kernels import linear_scan as LS
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -297,13 +335,14 @@ def rglru_case(B, S, W, hw, flush):
     torch.cuda.synchronize()
     err, tol = _scan_check("rglru_scan", [got], [LS.rglru_scan_plain(a, b)])
     ms = time_ms(lambda: LS.rglru_scan_cuda(a, b), flush=flush)
+    dev_ms = device_ms(lambda: LS.rglru_scan_cuda(a, b), "rglru_scan")
     plain_ms = time_ms(lambda: LS.rglru_scan_plain(a, b), flush=flush)
     nbytes = 4 * 3 * a.numel()            # read a, b; write h
     flops = 2.0 * a.numel()               # one multiply, one add
     bound_ms, bound_by = bound(flops, nbytes, FP32_PEAK, hw)
     rec = dict(shape=f"B{B} S{S} W{W} float32", max_abs_err=err, tol=tol,
-               ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-               bound_by=bound_by, gbps=nbytes / ms / 1e6)
+               ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bound_ms, bound_by=bound_by, gbps=nbytes / ms / 1e6)
     log("rglru_scan", json.dumps(rec))
     return rec
 
@@ -331,6 +370,67 @@ def ssm_case(B, S, D, N, hw, flush):
                gbps=nbytes / ms / 1e6)
     log("ssm_scan", json.dumps(rec))
     del a, b, c, got
+    return rec
+
+
+def selective_case(B, S, D, N, dtype, hw, flush):
+    """The fused selective scan (discretization inside the kernel) against
+    its plain version, and ``unfused_ms``: the same function as the path
+    ran it before, the torch discretization into fp32 (B, S, D, N) a and b
+    followed by the (a, b, c) kernel.  No PyTorch call computes it."""
+    import torch
+    from repro_torch.kernels import linear_scan as LS
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    dt_ = getattr(torch, dtype)
+    dt = (1e-3 + 0.199 * torch.rand(B, S, D, device="cuda", generator=g)
+          ).to(dt_)                       # softplus's range on the path
+    x = torch.randn(B, S, D, device="cuda", generator=g).to(dt_)
+    A = -torch.exp(torch.log(torch.arange(1, N + 1, device="cuda",
+                                          dtype=torch.float32))
+                   + 0.1 * torch.randn(D, N, device="cuda", generator=g))
+    Bm = torch.randn(B, S, N, device="cuda", generator=g).to(dt_)
+    Cm = torch.randn(B, S, N, device="cuda", generator=g).to(dt_)
+    got = LS.selective_scan_cuda(dt, x, A, Bm, Cm)
+    torch.cuda.synchronize()
+    want = LS.selective_scan_plain(dt, x, A, Bm, Cm)
+    err, tol = _scan_check("ssm_scan", got, want)
+    h_exact = bool(torch.equal(got[1], want[1]))
+    del got, want
+    ms = time_ms(lambda: LS.selective_scan_cuda(dt, x, A, Bm, Cm),
+                 flush=flush)
+    dev_ms = device_ms(lambda: LS.selective_scan_cuda(dt, x, A, Bm, Cm),
+                       "selective_scan")
+    big = B * S * D * N > 2**28
+    plain_ms = time_ms(lambda: LS.selective_scan_plain(dt, x, A, Bm, Cm),
+                       reps=5 if big else 15, flush=flush)
+
+    def unfused():
+        dtf = dt.float()
+        a = (dtf[..., None] * A).exp_()
+        bx = (dtf * x.float())[..., None] * Bm.float()[:, :, None, :]
+        return LS.ssm_scan_cuda(a, bx, Cm.float())
+    unfused_ms = time_ms(unfused, reps=5 if big else 15, flush=flush)
+    esz = dt.element_size()
+    # read dt, x, B, C and A; write y and h_last
+    nbytes = (esz * (2 * dt.numel() + 2 * Bm.numel()) + 4 * A.numel()
+              + 4 * (B * S * D + B * D * N))
+    elems = B * S * D * N
+    # dt*A, dx*B, a*h, +b, h*c, +y per element; dt*x per channel
+    flops = 6.0 * elems + B * S * D
+    bound_ms, bound_by = bound(flops, nbytes, FP32_PEAK, hw, exps=elems)
+    rec = dict(shape=f"B{B} S{S} D{D} N{N} {dtype}", max_abs_err=err,
+               tol=tol, h_bit_exact=h_exact, ms=ms, device_ms=dev_ms,
+               plain_ms=plain_ms,
+               unfused_ms=unfused_ms, library_ms=None,
+               library="none: no PyTorch call computes a linear recurrence",
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_parts_ms=dict(bytes=nbytes / hw.hbm_bandwidth * 1e3,
+                                   fp32=flops / FP32_PEAK * 1e3,
+                                   sfu_exp=elems / SFU_RATE * 1e3),
+               bound_share=bound_ms / ms, gbps=nbytes / ms / 1e6)
+    log("selective_scan", json.dumps(rec))
+    del dt, x, A, Bm, Cm
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -396,10 +496,21 @@ def kernel_phase(hw):
     norm_case(4 * 2048, 4096, "bfloat16", hw, flush)
     norm_case(2 * 3072, 4096, "bfloat16", hw, flush)
     norm_case(37, 256, "float32", hw, flush)
+    # falcon-mamba: the fused scan at one row and at the prefill call's own
+    # shape (B4 S2048), ragged f32 cases; then the (a, b, c) entry
+    sel = selective_case(1, 2048, 8192, 16, "bfloat16", hw, flush)
+    selective_case(4, 2048, 8192, 16, "bfloat16", hw, flush)
+    selective_case(2, 333, 4100, 16, "float32", hw, flush)
+    selective_case(1, 77, 96, 8, "float32", hw, flush)
     ssm = ssm_case(1, 2048, 8192, 16, hw, flush)    # falcon-mamba, one row
     ssm_case(2, 333, 4100, 16, hw, flush)
     ssm_case(1, 77, 96, 8, hw, flush)
-    rglru = rglru_case(1, 2048, 4096, hw, flush)    # recurrentgemma
+    # recurrentgemma: one row, the B2 S3072 prefill call, the kernel's
+    # 64-step chunk boundaries, ragged W
+    rglru = rglru_case(1, 2048, 4096, hw, flush)
+    rglru_case(2, 3072, 4096, hw, flush)
+    for S in (63, 64, 65):
+        rglru_case(2, S, 4100, hw, flush)
     rglru_case(2, 333, 4100, hw, flush)
     # qwen3-14b's int8 KV writes: prefill_cache's K or V at B4, window
     # 2304, 8 kv heads (floor 1e-8), and one decode step's at B8; then the
@@ -411,7 +522,9 @@ def kernel_phase(hw):
     del flush
     torch.cuda.empty_cache()
     return {"flash_attention": flash[(2048, "bfloat16")], "rmsnorm": norm,
-            "ssm_scan": ssm, "rglru_scan": rglru, "quantize_int8": quant}
+            "ssm_scan": dict(sel, abc_entry=dict(
+                ssm, source="src/repro_torch/kernels/csrc/linear_scan.cu")),
+            "rglru_scan": rglru, "quantize_int8": quant}
 
 
 # ---------------------------------------------------------------------------
@@ -923,6 +1036,70 @@ def parity_phase(arch, layers, B, S, window, kv_quant):
     torch.cuda.empty_cache()
 
 
+def block_parity(kind):
+    """One full-width recurrent block in float32 at B1 S2048, the kernel
+    scan against the chunked torch scan (``use_kernel=False``), on the
+    block's output and its final state."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru as RG, ssm as SM
+    arch, init, fwd = {
+        "ssm": ("falcon-mamba-7b", SM.init_ssm, SM.ssm_forward),
+        "rglru": ("recurrentgemma-9b", RG.init_rglru, RG.rglru_forward)}[kind]
+    cfg = get_config(arch).replace(dtype="float32")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init(cfg, "cuda", g)
+    x = torch.randn(1, 2048, cfg.d_model, device="cuda", generator=g)
+    outs = [fwd(params, x, cfg, use_kernel=k, return_state=True)
+            for k in (True, False)]
+    rec = dict(block=kind, arch=arch, batch=1, prompt=2048, dtype="float32")
+    for name, got, want in (("out", outs[0][0], outs[1][0]),
+                            ("h_last", outs[0][1].h, outs[1][1].h)):
+        err = float((got - want).abs().max())
+        tol = BLOCK_TOL * float(want.abs().max())
+        rec[name] = dict(max_abs_err=err, tol=tol, absmax=tol / BLOCK_TOL)
+    log("block_parity", json.dumps(rec))
+    assert all(rec[k]["max_abs_err"] <= rec[k]["tol"]
+               for k in ("out", "h_last")), rec
+    del params, outs
+    torch.cuda.empty_cache()
+
+
+def block_peak(B=4, S=2048):
+    """The device memory one full-width falcon-mamba SSM block adds to the
+    peak at the prefill call's shape, through the fused scan and through
+    the plain path; the fused one must stay below one fp32 (B, S, d_inner,
+    d_state) tensor, so no such tensor can have existed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as SM
+    cfg = get_config("falcon-mamba-7b")                # bf16, full width
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    params = SM.init_ssm(cfg, "cuda", g)
+    x = torch.randn(B, S, cfg.d_model, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    di = cfg.ssm.expand * cfg.d_model
+    limit = 4 * B * S * di * cfg.ssm.d_state
+    added = {}
+    for k in (True, False):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = SM.ssm_forward(params, x, cfg, use_kernel=k)
+        torch.cuda.synchronize()
+        added["kernel" if k else "plain"] = \
+            torch.cuda.max_memory_allocated() - base
+        del out
+    rec = dict(batch=B, prompt=S, d_inner=di, d_state=cfg.ssm.d_state,
+               added_gb=added["kernel"] / 1e9,
+               plain_path_added_gb=added["plain"] / 1e9,
+               limit_gb=limit / 1e9)
+    log("block_peak", json.dumps(rec))
+    assert added["kernel"] < limit, rec
+    del params, x
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -956,6 +1133,9 @@ def main() -> int:
     t = time.perf_counter()
     for case in PARITY:
         parity_phase(*case)
+    for kind in ("ssm", "rglru"):
+        block_parity(kind)
+    block_peak()
     log(f"parity: {time.perf_counter() - t:.1f} s")
 
     kernels = []
@@ -963,7 +1143,7 @@ def main() -> int:
             ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:119"),
             ("rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:34"),
-            ("ssm_scan", "linear_scan.cu",
+            ("ssm_scan", "selective_scan.cu",
              "src/repro/kernels/linear_scan.py:122"),
             ("rglru_scan", "linear_scan.cu",
              "src/repro/kernels/linear_scan.py:61"),
@@ -978,7 +1158,8 @@ def main() -> int:
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             shape=rec["shape"],
-            launches_by_path={a: v[name] for a, v in by_phase.items()}))
+            launches_by_path={a: v[name] for a, v in by_phase.items()},
+            **{k: rec[k] for k in ("unfused_ms", "abc_entry") if k in rec}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on first use
 into ``build/lib<name>-<hash>.so`` at the repository root, with one
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 per source; :func:`build_all` starts all of them together.  The file name
-carries a hash of the source, so an edited kernel is rebuilt and a stale
-library is never loaded.  The compiler's own output (``-Xptxas -v``:
+carries a hash of the source and of every ``csrc`` header it includes
+(``#include "hopper.cuh"``, followed through headers that include others),
+so an edited kernel or header is rebuilt and a stale library is never
+loaded.  The compiler's own output (``-Xptxas -v``:
 registers, shared memory, spills) and the build's wall time are kept
 beside it as ``.log``.
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -49,9 +52,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _inputs(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through other headers, in a fixed order."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return [seen[0]] + sorted(seen[1:])
+
+
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(ARCH_FLAGS + FLAGS).encode())
+    digest = hashlib.sha256(" ".join(ARCH_FLAGS + FLAGS).encode())
+    for path in _inputs(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -65,14 +65,12 @@
 // C entry: flash_attention_fwd(...) launches on the given stream and
 // returns a cudaError_t (cudaGetLastError() after the launch, or the
 // tensor-map encoder's failure), so a refused launch reaches the wrapper.
-// cuTensorMapEncodeTiled comes through cudaGetDriverEntryPoint, so the
-// library needs no -lcuda.
+// The mbarrier and TMA helpers and the tensor-map encoder are in
+// hopper.cuh, shared with selective_scan.cu.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 constexpr float NEG_INF = -1e30f;   // the Pallas body's finite mask sentinel
 
@@ -287,49 +285,7 @@ struct Cfg {
   static constexpr size_t bytes = TILES + 1024 + 8 * (2 * STAGES + 1);
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// returns once the barrier's phase of parity `parity` has completed; a
-// phase that never completes (a lost TMA transaction) traps after ~2^26
-// suspended tries instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  for (uint32_t n = 0;; ++n) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (n == (1u << 26)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2)
-      : "memory");
-}
+using namespace hopper;   // mbarrier, TMA and tensor-map helpers
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets, all in 16-byte units
@@ -546,7 +502,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       mbar_init(empty(s), NCONS * 128);
     }
     mbar_init(q_bar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -701,38 +657,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-PFN_cuTensorMapEncodeTiled_v12000 encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
-                                                     12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
 // (hd, rows, planes) bf16, read in boxes of 64 columns x box_rows rows
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int hd, int rows, int planes,
                      int box_rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 enc = encoder();
-  if (enc == nullptr) return cudaErrorSymbolNotFound;
-  cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)planes};
-  cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)rows * hd * 2};
-  cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  cuuint32_t estr[3] = {1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-                   dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  const uint64_t dims[3] = {(uint64_t)hd, (uint64_t)rows, (uint64_t)planes};
+  const uint32_t box[3] = {64, (uint32_t)box_rows, 1};
+  return make_map_3d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, dims, box,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int HD>

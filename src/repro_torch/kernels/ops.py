@@ -85,6 +85,26 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     return _ls.ssm_scan_plain(a, b, c)
 
 
+def selective_scan(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan with its discretization fused in.
+
+    dt, x: (B, S, D); A: (D, N) fp32; Bm, Cm: (B, S, N) ->
+    (y (B, S, D), h_last (B, D, N)) fp32; ``a = exp(dt A)`` and
+    ``b = (dt x) B`` never reach memory.  The path's counterpart of
+    ``ssm_scan_pallas``, so its launches count as ``"ssm_scan"``.
+    ``Bm`` and ``Cm`` may be strided slices of the x-projection: the
+    launcher copies them, (B, S, N), into contiguous fp32.
+    """
+    if dt.is_cuda:
+        out = _ls.selective_scan_cuda(dt.contiguous(), x.contiguous(),
+                                      A.contiguous(), Bm, Cm)
+        launches["ssm_scan"] += 1
+        return out
+    return _ls.selective_scan_plain(dt, x, A, Bm, Cm)
+
+
 def quantize_int8(x: torch.Tensor, floor: float = 1e-12
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, D) -> (q int8 (T, D), scale f32 (T, 1))."""

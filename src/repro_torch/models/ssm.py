@@ -3,9 +3,11 @@
 Counterpart of ``repro/models/ssm.py``: in-proj (x and z branches) ->
 causal depthwise conv -> silu -> selective scan with the C-contraction ->
 ``+ D x`` -> gate by silu(z) -> out-proj.  ``A_log``, ``D`` and the scan
-are fp32; the scan goes through the CUDA kernel (``kernels.ops.ssm_scan``)
-under ``use_kernel`` and through ``scan_utils.linear_scan_contract``
-otherwise.  The decode step is elementwise, as in the reference.
+are fp32.  Under ``use_kernel`` the discretization and the scan are one
+CUDA kernel (``kernels.ops.selective_scan``); otherwise the discretized
+``a`` and ``b`` are built whole and go through
+``scan_utils.linear_scan_contract``.  The decode step is elementwise, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -79,17 +81,20 @@ def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig,
     xp, z = torch.chunk(xz, 2, dim=-1)               # (B,S,di) each
     xc = F.silu(scan_utils.causal_conv1d(xp, params["conv_w"]))
     dt, A, Bm, Cm = _ssm_inner(params, xc, cfg)
-    dtf = dt.float()
-    # discretize: a = exp(dt*A), b = dt*x*B, both (B,S,di,N); exp in place,
-    # since each is 8.6 GB for a wave of 8 rows of 2048 at full width
-    a = (dtf[..., None] * A).exp_()
-    bx = (dtf * xc.float())[..., None] * Bm.float()[:, :, None, :]
     if use_kernel:
-        y, h_last = kernel_ops.ssm_scan(a, bx, Cm.float())
+        # the discretization happens inside the scan kernel: no
+        # (B, S, di, N) tensor is built
+        y, h_last = kernel_ops.selective_scan(dt, xc, A, Bm, Cm)
     else:
+        dtf = dt.float()
+        # discretize: a = exp(dt*A), b = dt*x*B, both (B,S,di,N); exp in
+        # place, since each is 8.6 GB for a wave of 8 rows of 2048 at full
+        # width
+        a = (dtf[..., None] * A).exp_()
+        bx = (dtf * xc.float())[..., None] * Bm.float()[:, :, None, :]
         h0 = a.new_zeros(a.shape[:1] + a.shape[2:])
         y, h_last = scan_utils.linear_scan_contract(a, bx, Cm.float(), h0)
-    del a, bx
+        del a, bx
     y = y + params["D"] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
     out = y @ params["out_proj"]

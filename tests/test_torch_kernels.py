@@ -13,6 +13,13 @@ reference, with the reconstruction bound of tests/test_kernels.py; the
 CUDA kernel does the plain version's IEEE operations, so on the card its
 codes and scales must be equal exactly.
 
+The fused selective scan (``ops.selective_scan``) takes dt, x, A, B, C:
+its plain version is held to the reference block's discretization
+followed by the Pallas kernel and ``ref.ssm_scan``.  The RG-LRU kernel's
+chunked carry reassociates the recurrence, so a torch emulation of it is
+held to ``ref.rglru_scan`` at 1e-5 here, and the kernel to its plain
+version on the card.
+
 The CUDA tests import no JAX, so the GPU machine runs this file alone:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels.py``.
 """
@@ -267,6 +274,83 @@ def test_ssm_scan_plain_matches_reference(B, S, D, N, bs, bd):
                                    rtol=1e-4)
 
 
+def _selective_inputs(B, S, D, N):
+    """dt in softplus's range, x, B, C normal, A = -exp(A_log) around the
+    model's -(1..N)."""
+    rng = np.random.default_rng(5)
+    A = -np.exp(np.log(np.arange(1, N + 1, dtype=np.float32))
+                + 0.1 * rng.standard_normal((D, N))).astype(np.float32)
+    return (rng.uniform(1e-3, 0.2, (B, S, D)).astype(np.float32),
+            rng.standard_normal((B, S, D)).astype(np.float32), A,
+            rng.standard_normal((B, S, N)).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,D,N,bs,bd", SSM_CASES)
+def test_selective_scan_plain_matches_reference(B, S, D, N, bs, bd, dtype):
+    """The fused scan's plain version against the reference block's own
+    discretization (src/repro/models/ssm.py) followed by the Pallas kernel
+    (interpret mode) and ref.ssm_scan."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from repro.kernels import ops as jops, ref as jref
+    dt, x, A, Bm, Cm = _selective_inputs(B, S, D, N)
+    y, h = ops.selective_scan(_t(dt, dtype), _t(x, dtype), torch.from_numpy(A),
+                              _t(Bm, dtype), _t(Cm, dtype))
+    assert y.dtype == h.dtype == torch.float32
+    jdt, jx, jB, jC = (jnp.asarray(v, getattr(jnp, dtype))
+                       for v in (dt, x, Bm, Cm))
+    dtf = jdt.astype(jnp.float32)
+    ja = jnp.exp(dtf[..., None] * jnp.asarray(A))
+    jb = (dtf * jx.astype(jnp.float32))[..., None] * \
+        jB.astype(jnp.float32)[:, :, None, :]
+    jc = jC.astype(jnp.float32)
+    for wy, wh in (jops.ssm_scan(ja, jb, jc, bs=bs, bd=bd),
+                   jref.ssm_scan(ja, jb, jc)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(wy), atol=1e-4,
+                                   rtol=1e-4)
+        np.testing.assert_allclose(h.numpy(), np.asarray(wh), atol=1e-4,
+                                   rtol=1e-4)
+
+
+def _rglru_chunked(a, b, L):
+    """What the RG-LRU kernel computes, chunk by chunk, in torch: each chunk
+    of L steps folds its aggregate (P = prod a, H = the scan from 0), its
+    carry is the fold P_j * carry + H_j over the chunks before it (the value
+    the look-back gives, whichever predecessor it stops at), and h is the
+    chunk rescanned in sequence order from that carry."""
+    h = torch.empty_like(a)
+    carry = torch.zeros_like(a[:, 0])
+    for c0 in range(0, a.shape[1], L):
+        ac, bc = a[:, c0:c0 + L], b[:, c0:c0 + L]
+        P, H = torch.ones_like(carry), torch.zeros_like(carry)
+        for u in range(ac.shape[1]):
+            H = ac[:, u] * H + bc[:, u]
+            P = P * ac[:, u]
+        hh = carry
+        for u in range(ac.shape[1]):
+            hh = ac[:, u] * hh + bc[:, u]
+            h[:, c0 + u] = hh
+        carry = P * carry + H
+    return h
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, None])
+@pytest.mark.parametrize("B,S,W,bs,bw", RGLRU_CASES)
+def test_rglru_chunked_carry_fits_the_reference(B, S, W, bs, bw, chunk):
+    """The kernel's chunk-and-carry composition (64-step chunks; also 1, 7
+    and the whole sequence) stays within the scan's 1e-5 of the reference."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from repro.kernels import ref as jref
+    a, b = _rglru_inputs(B, S, W)
+    got = _rglru_chunked(torch.from_numpy(a), torch.from_numpy(b),
+                         chunk or S).numpy()
+    want = np.asarray(jref.rglru_scan(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
 def _quant_input(T, D):
     """normal * 3 (tests/test_kernels.py), with a zero row and a row whose
     amax lies between the two floors, so that each floor shows."""
@@ -317,6 +401,8 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.rmsnorm(q, torch.ones(32))
     ops.rglru_scan(*(torch.from_numpy(x) for x in _rglru_inputs(1, 4, 8)))
     ops.ssm_scan(*(torch.from_numpy(x) for x in _ssm_inputs(1, 4, 8, 4)))
+    ops.selective_scan(*(torch.from_numpy(x)
+                         for x in _selective_inputs(1, 4, 8, 8)))
     q, s = ops.quantize_int8(q.reshape(-1, 32), floor=1e-8)
     assert q.dtype == torch.int8 and s.shape == (16, 1)
     assert ops.launches == {"flash_attention": 0, "rmsnorm": 0,
@@ -337,17 +423,44 @@ def test_cuda_launchers_raise_on_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA device"):
         LS.ssm_scan_cuda(x[..., None], x[..., None], x[:, :, :1])
     with pytest.raises(ValueError, match="CUDA device"):
+        LS.selective_scan_cuda(x, x, torch.zeros(8, 8), x, x)
+    with pytest.raises(ValueError, match="CUDA device"):
         QZ.quantize_int8_cuda(torch.zeros(4, 8))
 
 
 def test_build_names_each_library_by_its_source():
     from repro_torch.kernels import _build
     assert _build.sources() == ["flash_attention", "linear_scan", "quantize",
-                                "rmsnorm"]
+                                "rmsnorm", "selective_scan"]
     paths = [_build.lib_path(n) for n in _build.sources()]
-    assert len(set(paths)) == 4 and all(p.parent == _build.BUILD
+    assert len(set(paths)) == 5 and all(p.parent == _build.BUILD
                                         for p in paths)
     assert paths == [_build.lib_path(n) for n in _build.sources()]
+
+
+def test_build_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """An edited header renames every library whose source includes it,
+    directly or through another header, and no other."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = _build.sources()
+    before = {n: _build.lib_path(n) for n in names}
+    users = {n for n in names if b'#include "hopper.cuh"'
+             in (csrc / f"{n}.cu").read_bytes()}
+    assert users == {"flash_attention", "selective_scan"}
+    hdr = csrc / "hopper.cuh"
+    hdr.write_bytes(hdr.read_bytes() + b"// edited\n")
+    edited = {n: _build.lib_path(n) for n in names}
+    assert {n for n in names if edited[n] != before[n]} == users
+    # a header that hopper.cuh includes counts too
+    (csrc / "inner.cuh").write_text("#pragma once\n")
+    hdr.write_bytes(hdr.read_bytes() + b'#include "inner.cuh"\n')
+    nested = {n: _build.lib_path(n) for n in names}
+    (csrc / "inner.cuh").write_text("#pragma once\n// edited\n")
+    assert {n for n in names if _build.lib_path(n) != nested[n]} == users
 
 
 @pytest.mark.cuda
@@ -381,8 +494,17 @@ def test_rmsnorm_cuda_matches_plain(cuda, T, D, dtype, sdtype):
                                atol=tol, rtol=tol)
 
 
+# the kernel's chunks are 64 steps of 128 columns: S on either side of one
+# and two chunk boundaries, W off the column tile, and recurrentgemma's B2
+# S3072 prefill
+RGLRU_EDGES = [(1, S, W, 0, 0) for S in (1, 63, 64, 65, 127, 128, 129)
+               for W in (128, 130)] + [(3, 200, 4100, 0, 0),
+                                       (2, 3072, 4096, 0, 0)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,W,bs,bw", RGLRU_CASES + [(2, 333, 4100, 0, 0)])
+@pytest.mark.parametrize("B,S,W,bs,bw",
+                         RGLRU_CASES + [(2, 333, 4100, 0, 0)] + RGLRU_EDGES)
 def test_rglru_scan_cuda_matches_plain(cuda, B, S, W, bs, bw):
     a, b = (torch.from_numpy(x).to(cuda) for x in _rglru_inputs(B, S, W))
     ops.reset_launches()
@@ -405,6 +527,30 @@ def test_ssm_scan_cuda_matches_plain(cuda, B, S, D, N, bs, bd):
     torch.cuda.synchronize()
     assert ops.launches["ssm_scan"] == 1
     wy, wh = LS.ssm_scan_plain(a, b, c)
+    np.testing.assert_allclose(_np(y), _np(wy), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(_np(h), _np(wh), atol=1e-4, rtol=1e-4)
+
+
+# the fused kernel's edges: both dtypes, N 8 and 16, D off its d-tile (32
+# d's at N 16, 64 at N 8) and S off its 64-step tile, B > 1
+SELECTIVE_SWEEP = [(B, S, D, N, dt) for B, S, D, N in [
+    (1, 64, 64, 8), (2, 77, 96, 16), (1, 1, 32, 16), (1, 63, 40, 16),
+    (2, 65, 200, 8), (1, 129, 4104, 16), (2, 333, 4100, 16),
+    (1, 77, 96, 8), (3, 200, 512, 16)] for dt in ("float32", "bfloat16")
+    if (D * (2 if dt == "bfloat16" else 4)) % 16 == 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,N,dtype", SELECTIVE_SWEEP)
+def test_selective_scan_cuda_matches_plain(cuda, B, S, D, N, dtype):
+    dt, x, A, Bm, Cm = _selective_inputs(B, S, D, N)
+    args = [_t(v, dtype, cuda) for v in (dt, x)] + [
+        torch.from_numpy(A).to(cuda)] + [_t(v, dtype, cuda) for v in (Bm, Cm)]
+    ops.reset_launches()
+    y, h = ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ops.launches["ssm_scan"] == 1
+    wy, wh = LS.selective_scan_plain(*args)
     np.testing.assert_allclose(_np(y), _np(wy), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(_np(h), _np(wh), atol=1e-4, rtol=1e-4)
 
@@ -442,6 +588,22 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         LS.ssm_scan_cuda(a, a, a[..., 0, :].contiguous())
     with pytest.raises(ValueError, match="float32"):
         LS.rglru_scan_cuda(a[..., 0].double(), a[..., 0].double())
+    dt = torch.ones(1, 4, 16, device=cuda)
+    bc = torch.ones(1, 4, 8, device=cuda)
+    A = -torch.ones(16, 8, device=cuda)
+    with pytest.raises(ValueError, match="d_state"):          # N 4
+        LS.selective_scan_cuda(dt, dt, A[:, :4].contiguous(), bc[..., :4]
+                               .contiguous(), bc[..., :4].contiguous())
+    with pytest.raises(ValueError, match="dtype"):            # float16
+        LS.selective_scan_cuda(dt.half(), dt.half(), A, bc.half(), bc.half())
+    with pytest.raises(ValueError, match="dtype"):            # mixed
+        LS.selective_scan_cuda(dt.bfloat16(), dt, A, bc, bc)
+    with pytest.raises(ValueError, match="16 bytes"):         # D 12 in bf16
+        LS.selective_scan_cuda(dt[..., :12].bfloat16(), dt[..., :12]
+                               .bfloat16(), A[:12].contiguous(),
+                               bc.bfloat16(), bc.bfloat16())
+    with pytest.raises(ValueError, match="float32"):          # A in bf16
+        LS.selective_scan_cuda(dt, dt, A.bfloat16(), bc, bc)
     with pytest.raises(ValueError, match="contiguous"):
         LS.rglru_scan_cuda(a[..., 0].transpose(1, 2), a[..., 0].transpose(1, 2))
     with pytest.raises(ValueError, match="float32/bfloat16"):
