@@ -12,7 +12,12 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              events, median), the plain version's time, one PyTorch
              library call's time where one computes the same function (a
              yardstick the port never calls) and the least time the card
-             could take (``configs.base.H100``).
+             could take (``configs.base.H100``).  The int8 quantize kernel
+             is timed at its three entries (rows, the decode-step KV store,
+             the prefill KV store), each held bit-exact to its plain
+             version, with the kernel's own ``device_ms``, the wrapper's
+             host µs a call and, for the stores, ``unfused_ms``: the ops
+             the path ran before the store was fused.
 3. serve   — the main paths, each through ``ServeEngine`` in bf16 at full
              width and depth, random weights from a seeded generator:
              qwen3-14b (40 layers, 16 requests), falcon-mamba-7b (64
@@ -28,13 +33,16 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              an int8 KV cache, sticky routing onto a hot shard, work
              stealing, KV-costed live migration priced on the int8 wire
              layout, and slack leases.  Every K/V vector written goes
-             through the int8 quantize kernel: 2 launches per layer per
-             prefill and decode call.  At least one steal and one live
-             migration must run, and the books must balance.
+             through the int8 quantize kernel's KV stores, K and V in one
+             launch: 1 launch per layer per prefill and decode call.  At
+             least one steal and one live migration must run, and the
+             books must balance.
 5. parity  — full width, bf16, reduced depth (qwen3-14b and falcon-mamba-7b
              at 2 layers, recurrentgemma-9b at 5, qwen3-14b with the int8
              KV cache): prefill and 8 decode-step logits with
-             ``use_kernels=True`` against ``use_kernels=False``.  Then one
+             ``use_kernels=True`` against ``use_kernels=False``, and every
+             int8 KV store of the kernel path against the plain store on
+             clones of the same caches, exactly.  Then one
              full-width falcon-mamba SSM block and one recurrentgemma
              RG-LRU block in float32 at B1 S2048, ``use_kernel=True``
              against the chunked torch scan, on the output and the final
@@ -91,6 +99,9 @@ BLOCK_TOL = 1e-4
 # (RMS 1 after the final norm) are held to the same rule.
 PARITY_TOL = 0.1
 PARITY_REL = 3e-2
+# the int8 quantizer and its KV stores have no library yardstick
+QUANT_LIBRARY = ("none: no single PyTorch call computes the scales and the "
+                 "codes")
 # the serve phases' control plane (dynamic warp_regroup)
 AMOEBA = dict(split_threshold=0.3, fuse_threshold=0.05, min_phase_steps=2)
 
@@ -137,13 +148,34 @@ def device_ms(fn, key: str, n: int = 10) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and key in e.key)
-    return us / 1e3 / n if us > 0 else "not measured"
+    for _ in range(3):      # a session now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in kern if key in e.key)
+        if us > 0:
+            return us / 1e3 / n
+        log("device_ms: no kernel named", key, "among",
+            [(e.key[:50], e.count) for e in kern])
+    return "not measured"
+
+
+def host_us(fn, n: int = 200) -> float:
+    """The host's time a call in µs: ``n`` calls enqueued back to back,
+    the clock read before the card is waited for."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound(flops: float, nbytes: float, peak: float, hw, exps: float = 0):
@@ -161,7 +193,7 @@ def bound(flops: float, nbytes: float, peak: float, hw, exps: float = 0):
 
 KERNEL_NAMES = ("flash_fwd_wgmma", "flash_fwd_kernel", "rmsnorm_kernel",
                 "selective_scan_kernel", "ssm_scan_kernel",
-                "rglru_scan_lookback", "quantize_int8_kernel")
+                "rglru_scan_lookback", "quantize_int8")
 
 
 def _demangle(cufilt, names):
@@ -455,7 +487,8 @@ def quant_case(T_, D, dtype, floor, hw, flush):
     assert code_diff == 0 and torch.equal(s, ws), \
         f"quantize_int8 kernel disagrees: {n_diff} codes differ (max " \
         f"{code_diff}), scales by {scale_err}"
-    ms = time_ms(lambda: QZ.quantize_int8_cuda(x, floor), flush=flush)
+    kernel = lambda: QZ.quantize_int8_cuda(x, floor)  # noqa: E731
+    ms = time_ms(kernel, flush=flush)
     plain_ms = time_ms(lambda: QZ.quantize_int8_plain(x, floor), flush=flush)
     nbytes = x.numel() * x.element_size() + q.numel() + 4 * s.numel()
     flops = 4.0 * x.numel()           # |x|, max, divide, round (fp32)
@@ -463,11 +496,128 @@ def quant_case(T_, D, dtype, floor, hw, flush):
     rec = dict(shape=f"T{T_} D{D} {dtype} floor {floor:g}",
                max_abs_err=max(float(code_diff), scale_err),
                max_code_diff=code_diff, codes_differing=n_diff,
-               max_scale_diff=scale_err, tol=0.0, ms=ms, plain_ms=plain_ms,
-               library_ms=None, library="none: no single PyTorch call "
-               "computes the scales and the codes", bound_ms=bound_ms,
-               bound_by=bound_by, gbps=nbytes / ms / 1e6)
+               max_scale_diff=scale_err, tol=0.0, ms=ms,
+               device_ms=device_ms(kernel, "quantize_int8"),
+               host_us=host_us(kernel), plain_ms=plain_ms,
+               library_ms=None, library=QUANT_LIBRARY, bound_ms=bound_ms,
+               bound_by=bound_by, gbps=nbytes / ms / 1e6,
+               bound_share=bound_ms / ms)
     log("quantize_int8", json.dumps(rec))
+    return rec
+
+
+
+def _equal_all(got, want, what):
+    """Each tensor of ``got`` equal to ``want``'s in dtype, shape and bits."""
+    import torch
+    diff = {i: (g.dtype, tuple(g.shape), w.dtype, tuple(w.shape))
+            if (g.dtype, g.shape) != (w.dtype, w.shape)
+            else int((g != w).sum())
+            for i, (g, w) in enumerate(zip(got, want))
+            if (g.dtype, g.shape) != (w.dtype, w.shape)
+            or not torch.equal(g, w)}
+    assert not diff, f"{what} differs from its plain version: {diff}"
+
+
+def store_decode_case(B, KV, hd, W, dtype, hw, flush, offset=0, s_loc=None):
+    """One decode step's int8 KV store (K and V in one launch, the slot
+    from pos on the device) against its plain version on clones of the
+    same caches, exactly: written slots and the sentinels of every other.
+    ``unfused_ms`` times the ops the path ran before the store was fused:
+    the slot arithmetic (7 launches), two quantize launches and four
+    ``write_slot_`` (3 launches each), 21 launches."""
+    import torch
+    from repro_torch.kernels import quantize as QZ
+    s_loc = W if s_loc is None else s_loc
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    dt = getattr(torch, dtype)
+    nk, nv = (3.0 * torch.randn(B, KV, hd, device="cuda", generator=g)
+              ).to(dt), (3.0 * torch.randn(B, KV, hd, device="cuda",
+                                           generator=g)).to(dt)
+    caches = [torch.randint(-127, 128, (B, s_loc, KV, hd), device="cuda",
+                            generator=g, dtype=torch.int8) for _ in "kv"]
+    caches += [5 + torch.rand(B, s_loc, KV, 1, device="cuda", generator=g)
+               for _ in "kv"]
+    pos = torch.randint(0, 3 * W, (B,), device="cuda", generator=g)
+    want = [c.clone() for c in caches]
+    QZ.quantize_kv_store_cuda_(nk, nv, *caches, pos, W, offset, 1e-8)
+    torch.cuda.synchronize()
+    QZ.quantize_kv_store_plain_(nk, nv, *want, pos, W, offset, 1e-8)
+    _equal_all(caches, want, "decode KV store")
+    rec = dict(shape=f"B{B} KV{KV} hd{hd} {dtype} W{W} offset {offset} "
+               f"s_loc {s_loc}", max_abs_err=0.0, tol=0.0)
+    if offset or s_loc != W:               # an exactness check only
+        log("quantize_kv_store", json.dumps(rec))
+        return rec
+
+    def kernel():
+        QZ.quantize_kv_store_cuda_(nk, nv, *caches, pos, W, offset, 1e-8)
+
+    def unfused():
+        slot = torch.remainder(pos, W) - offset
+        in_range = (slot >= 0) & (slot < s_loc)
+        clamped = torch.clamp(slot, 0, s_loc - 1)
+        bidx = torch.arange(B, device="cuda")
+        for new, c, s in ((nk, caches[0], caches[2]),
+                          (nv, caches[1], caches[3])):
+            q, sc = QZ.quantize_int8_cuda(new.reshape(-1, hd), 1e-8)
+            QZ.write_slot_(c, q.reshape(new.shape), bidx, clamped, in_range)
+            QZ.write_slot_(s, sc.reshape(new.shape[:-1] + (1,)), bidx,
+                           clamped, in_range)
+    unfused()
+    torch.cuda.synchronize()
+    _equal_all(caches, want, "the unfused decode KV write")
+    nbytes = (2 * nk.numel() * nk.element_size() + pos.numel() * 8
+              + 2 * nk.numel() + 2 * 4 * B * KV)
+    bound_ms, bound_by = bound(4.0 * 2 * nk.numel(), nbytes, FP32_PEAK, hw)
+    rec.update(ms=time_ms(kernel, flush=flush),
+               device_ms=device_ms(kernel, "quantize_int8"),
+               host_us=host_us(kernel),
+               plain_ms=time_ms(lambda: QZ.quantize_kv_store_plain_(
+                   nk, nv, *caches, pos, W, offset, 1e-8), flush=flush),
+               unfused_ms=time_ms(unfused, flush=flush),
+               unfused_host_us=host_us(unfused), unfused_launches=21,
+               library_ms=None, library=QUANT_LIBRARY, bound_ms=bound_ms,
+               bound_by=bound_by)
+    log("quantize_kv_store", json.dumps(rec))
+    return rec
+
+
+def store_prefill_case(B, S, KV, hd, W, dtype, hw, flush):
+    """Prefill's int8 KV store (the ring layout and the quantizer in one
+    launch) against its plain version, exactly; ``unfused_ms`` times the
+    path before the fusion: the reference's slice/roll or zero pad, then
+    one quantize launch each for K and V."""
+    import torch
+    from repro_torch.kernels import quantize as QZ
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    dt = getattr(torch, dtype)
+    k, v = ((3.0 * torch.randn(B, S, KV, hd, device="cuda", generator=g)
+             ).to(dt) for _ in "kv")
+    got = QZ.quantize_kv_prefill_cuda(k, v, W, 1e-8)
+    torch.cuda.synchronize()
+    _equal_all(got, QZ.quantize_kv_prefill_plain(k, v, W, 1e-8),
+               "prefill KV store")
+    kernel = lambda: QZ.quantize_kv_prefill_cuda(k, v, W, 1e-8)  # noqa: E731
+
+    def unfused():
+        return [QZ.quantize_int8_cuda(QZ.ring_layout(x, W).reshape(-1, hd),
+                                      1e-8) for x in (k, v)]
+    # the kernel reads only the last min(S, W) positions of K and V and
+    # writes whole rings (the pad as code 0 and the floor's scale)
+    read = 2 * B * min(S, W) * KV * hd
+    nbytes = read * k.element_size() + 2 * B * W * KV * (hd + 4)
+    bound_ms, bound_by = bound(4.0 * read, nbytes, FP32_PEAK, hw)
+    ms = time_ms(kernel, flush=flush)
+    rec = dict(shape=f"B{B} S{S} KV{KV} hd{hd} {dtype} W{W}", max_abs_err=0.0,
+               tol=0.0, ms=ms, device_ms=device_ms(kernel, "quantize_int8"),
+               host_us=host_us(kernel, n=50),
+               plain_ms=time_ms(lambda: QZ.quantize_kv_prefill_plain(
+                   k, v, W, 1e-8), flush=flush),
+               unfused_ms=time_ms(unfused, flush=flush), library_ms=None,
+               library=QUANT_LIBRARY, bound_ms=bound_ms, bound_by=bound_by,
+               bound_share=bound_ms / ms, gbps=nbytes / ms / 1e6)
+    log("quantize_kv_prefill", json.dumps(rec))
     return rec
 
 
@@ -512,19 +662,33 @@ def kernel_phase(hw):
     for S in (63, 64, 65):
         rglru_case(2, S, 4100, hw, flush)
     rglru_case(2, 333, 4100, hw, flush)
-    # qwen3-14b's int8 KV writes: prefill_cache's K or V at B4, window
-    # 2304, 8 kv heads (floor 1e-8), and one decode step's at B8; then the
-    # TPU kernel's own sweep at its 1e-12 floor
+    # the int8 quantizer's rows entry at qwen3-14b's KV rows: prefill's K
+    # or V at B4, window 2304, 8 kv heads (floor 1e-8), and one decode
+    # step's at B8; then the TPU kernel's own sweep at its 1e-12 floor
     quant = quant_case(4 * 2304 * 8, 128, "bfloat16", 1e-8, hw, flush)
     quant_case(8 * 8, 128, "bfloat16", 1e-8, hw, flush)
     quant_case(128, 1024, "float32", 1e-12, hw, flush)
     quant_case(33, 257, "float32", 1e-12, hw, flush)
+    # the KV stores the int8 path runs: a batch-8 decode step into a 2304
+    # ring, a window of the ring that leaves rows out of range (checked
+    # only), the B4 S2048 prefill into a 2304 ring, and a prompt past the
+    # ring (slice and roll)
+    store = store_decode_case(8, 8, 128, 2304, "bfloat16", hw, flush)
+    store_decode_case(8, 8, 128, 2304, "bfloat16", hw, flush, offset=1152,
+                      s_loc=576)
+    prefill = store_prefill_case(4, 2048, 8, 128, 2304, "bfloat16", hw,
+                                 flush)
+    store_prefill_case(2, 2500, 8, 128, 2304, "bfloat16", hw, flush)
     del flush
     torch.cuda.empty_cache()
     return {"flash_attention": flash[(2048, "bfloat16")], "rmsnorm": norm,
             "ssm_scan": dict(sel, abc_entry=dict(
                 ssm, source="src/repro_torch/kernels/csrc/linear_scan.cu")),
-            "rglru_scan": rglru, "quantize_int8": quant}
+            "rglru_scan": rglru,
+            # the decode store makes most of the path's launches; the rows
+            # entry (the TPU kernel's interface) is off the path
+            "quantize_int8": dict(store, rows_entry=quant,
+                                  prefill_store=prefill)}
 
 
 # ---------------------------------------------------------------------------
@@ -709,8 +873,11 @@ def decode_profile(cfg, params, rt, B=8, S=512, steps=4):
         torch.cuda.synchronize()
         return (time.perf_counter() - t) / n * 1e3
 
+    from repro_torch.kernels import ops
     run(2)
+    ops.reset_launches()
     wall_ms = run(steps)
+    ours = {k: v / steps for k, v in ops.launches.items() if v}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run(steps)
@@ -724,6 +891,7 @@ def decode_profile(cfg, params, rt, B=8, S=512, steps=4):
                device_busy_share=dev_ms / wall_ms if dev_ms > 0
                else "not measured",
                kernels_per_call=sum(e.count for e in kern) / steps,
+               hand_written_launches_per_call=ours,
                top=[(e.key[:60], round(e.self_device_time_total / 1e3 / steps,
                                        4), e.count // steps) for e in top])
     log("decode_profile", json.dumps(rec))
@@ -886,7 +1054,8 @@ def fleet_phase(smi):
     assert len(moves) == mig["live_migrations"], moves
     n_prefill, n_decode = paths.prefill_calls, len(paths.spans["decode"])
     layers = cfg.num_layers
-    assert launches["quantize_int8"] == 2 * layers * (n_prefill + n_decode), \
+    # K and V in one store launch a layer, at prefill and at each decode
+    assert launches["quantize_int8"] == layers * (n_prefill + n_decode), \
         (launches, n_prefill, n_decode)
     assert launches["flash_attention"] == layers * n_prefill, launches
     assert launches["rmsnorm"] > 0, launches
@@ -978,20 +1147,31 @@ def parity_phase(arch, layers, B, S, window, kv_quant):
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, S)), device="cuda")
     rts = [T.Runtime(use_kernels=k, kv_quant=kv_quant) for k in (True, False)]
-    # every int8 KV write of the kernel path, held to the plain quantizer
-    # on the same K/V rows: codes and scales equal exactly
-    quantize, checked = ops.quantize_int8, {"calls": 0, "rows": 0}
+    # every int8 KV store of the kernel path, held to the plain store on
+    # clones of the same caches and inputs: codes and scales equal exactly
+    store, prefill_store = ops.quantize_kv_store_, ops.quantize_kv_prefill
+    checked = {"calls": 0, "rows": 0}
 
-    def checked_quantize(x, floor=1e-12):
-        q, s = quantize(x, floor)
-        wq, ws = QZ.quantize_int8_plain(x, floor)
-        assert torch.equal(q, wq) and torch.equal(s, ws), \
-            f"int8 KV write differs from the plain quantizer at {x.shape}"
+    def checked_store(new_k, new_v, k, v, k_scale, v_scale, pos, W,
+                      offset=0, floor=1e-8):
+        want = [t.clone() for t in (k, v, k_scale, v_scale)]
+        store(new_k, new_v, k, v, k_scale, v_scale, pos, W, offset, floor)
+        QZ.quantize_kv_store_plain_(new_k, new_v, *want, pos, W, offset,
+                                    floor)
+        _equal_all((k, v, k_scale, v_scale), want, "an int8 KV decode store")
         checked["calls"] += 1
-        checked["rows"] += x.shape[0]
-        return q, s
+        checked["rows"] += 2 * new_k.shape[0] * new_k.shape[1]
 
-    ops.quantize_int8 = checked_quantize
+    def checked_prefill(k, v, W, floor=1e-8):
+        out = prefill_store(k, v, W, floor)
+        _equal_all(out, QZ.quantize_kv_prefill_plain(k, v, W, floor),
+                   "an int8 KV prefill store")
+        checked["calls"] += 1
+        checked["rows"] += 2 * k.shape[0] * W * k.shape[2]
+        return out
+
+    ops.quantize_kv_store_, ops.quantize_kv_prefill = (checked_store,
+                                                       checked_prefill)
     # the final hidden states too: at 2 layers falcon-mamba's tied logits
     # are dominated by each token's own embedding (|logit| ~ d_model), where
     # a bf16 ulp hides what the blocks did
@@ -1017,11 +1197,12 @@ def parity_phase(arch, layers, B, S, window, kv_quant):
         errs.append(float((lg[0] - lg[1]).abs().max()))
         absmax = max(absmax, float(lg[1].abs().max()))
         nxt = torch.argmax(lg[0], dim=-1)[:, None]   # same tokens to both
-    ops.quantize_int8 = quantize
+    ops.quantize_kv_store_, ops.quantize_kv_prefill = store, prefill_store
     if kv_quant:
         caches["decode_8"] = _cache_diff(*states)
-        # K and V of each layer, at prefill and at each of the 8 steps
-        assert checked["calls"] == 2 * layers * 9, checked
+        # K and V of each layer, at prefill and at each of the 8 steps: one
+        # store a layer and call
+        assert checked["calls"] == layers * 9, checked
     tol = PARITY_TOL if arch == "qwen3-14b" else max(PARITY_TOL,
                                                      PARITY_REL * absmax)
     rec = dict(arch=arch, layers=layers, batch=B, prompt=S,
@@ -1159,7 +1340,9 @@ def main() -> int:
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             shape=rec["shape"],
             launches_by_path={a: v[name] for a, v in by_phase.items()},
-            **{k: rec[k] for k in ("unfused_ms", "abc_entry") if k in rec}))
+            **{k: rec[k] for k in ("device_ms", "unfused_ms", "abc_entry",
+                                   "rows_entry", "prefill_store")
+               if k in rec}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

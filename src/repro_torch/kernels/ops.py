@@ -115,4 +115,41 @@ def quantize_int8(x: torch.Tensor, floor: float = 1e-12
     return _qz.quantize_int8_plain(x, floor)
 
 
+def quantize_kv_store_(new_k: torch.Tensor, new_v: torch.Tensor,
+                       k: torch.Tensor, v: torch.Tensor,
+                       k_scale: torch.Tensor, v_scale: torch.Tensor,
+                       pos: torch.Tensor, W: int, offset: int = 0,
+                       floor: float = 1e-8) -> None:
+    """One decode step's int8 KV write, in place.
+
+    new_k, new_v: (B, KV, hd); k, v: (B, s_loc, KV, hd) int8; k_scale,
+    v_scale: (B, s_loc, KV, 1) f32; pos: (B,) int64.  Each batch row's
+    vectors are quantized into ring slot ``(pos[b] mod W) - offset`` where
+    it lies in ``[0, s_loc)``.  On the card K and V go in one launch of
+    the quantize kernel (counted as ``"quantize_int8"``); the caches are
+    written where they are (a non-contiguous one raises).
+    """
+    if new_k.is_cuda:
+        _qz.quantize_kv_store_cuda_(new_k.contiguous(), new_v.contiguous(),
+                                    k, v, k_scale, v_scale, pos.contiguous(),
+                                    W, offset, floor)
+        launches["quantize_int8"] += 1
+        return
+    _qz.quantize_kv_store_plain_(new_k, new_v, k, v, k_scale, v_scale, pos,
+                                 W, offset, floor)
+
+
+def quantize_kv_prefill(k: torch.Tensor, v: torch.Tensor, W: int,
+                        floor: float = 1e-8):
+    """Prefill's int8 KV caches: k, v (B, S, KV, hd) -> (k int8, v int8
+    (B, W, KV, hd), k_scale, v_scale f32 (B, W, KV, 1)) in the ring
+    layout (slot = p mod W); one launch on the card."""
+    if k.is_cuda:
+        out = _qz.quantize_kv_prefill_cuda(k.contiguous(), v.contiguous(), W,
+                                           floor)
+        launches["quantize_int8"] += 1
+        return out
+    return _qz.quantize_kv_prefill_plain(k, v, W, floor)
+
+
 dequantize_int8 = _qz.dequantize_int8

@@ -9,9 +9,13 @@ Counterpart of ``repro/models/attention.py``.  Two full-sequence paths:
     with ``use_flash=True`` (prefill under ``Runtime.use_kernels``).
 
 Under ``Runtime.kv_quant`` every K/V vector written into the cache, at
-prefill and at each decode step, is quantized to int8 by
-``kernels.ops.quantize_int8`` when ``use_kernels`` is on (the reference
-computes the same function inline in jnp).
+prefill and at each decode step, is quantized to int8 by one of two
+stores: ``quantize_kv_prefill`` builds the prefill ring and
+``quantize_kv_store_`` writes a decode step's K and V into their slot.
+With ``use_kernels`` on they are ``kernels.ops``'s, one launch of the
+quantize kernel a layer; off, their plain versions in
+``kernels.quantize`` (the reference computes the same function inline in
+jnp).
 
 ``decode_attention`` scores one new token against the ring-buffer KV cache
 in torch ops (the reference has no Pallas kernel there).  The reference's
@@ -34,7 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.quantize import quantize_int8_plain
+from repro_torch.kernels import quantize as QZ
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -193,21 +197,6 @@ class KVCache(NamedTuple):
     v_scale: Any = None
 
 
-def _quantize_kv(x: torch.Tensor, use_kernels: bool = False):
-    """(.., hd) -> int8 payload + per-vector f32 scale.
-
-    The floor is 1e-8, as in the reference's ``_quantize_kv`` (not the
-    int8 kernel's 1e-12).  ``use_kernels`` quantizes the vectors as rows
-    through ``kernel_ops.quantize_int8`` (the CUDA kernel on a CUDA
-    tensor), which computes the same bits as the plain version.
-    """
-    if not use_kernels:
-        return quantize_int8_plain(x, floor=1e-8)
-    q, scale = kernel_ops.quantize_int8(x.reshape(-1, x.shape[-1]),
-                                        floor=1e-8)
-    return q.reshape(x.shape), scale.reshape(x.shape[:-1] + (1,))
-
-
 def _dequantize_kv(q: torch.Tensor, scale, dtype=torch.float32) -> torch.Tensor:
     if scale is None:
         return q.to(dtype)
@@ -239,13 +228,6 @@ def _ring_valid(pos: torch.Tensor, W: int, slots: torch.Tensor) -> torch.Tensor:
     return p >= 0
 
 
-def _write_slot_(buf, new_val, bidx, clamped, in_range) -> None:
-    """In place: buf[b, clamped[b]] = new_val[b] where in_range[b]."""
-    cur = buf[bidx, clamped]
-    keep = in_range.reshape((-1,) + (1,) * (cur.dim() - 1))
-    buf[bidx, clamped] = torch.where(keep, new_val.to(buf.dtype), cur)
-
-
 def _decode_core(q, cache: KVCache, new_k, new_v, pos, *, W, offset,
                  s_loc, update, use_kernels: bool = False):
     """Scores one token against the cache; writes its K/V into the cache.
@@ -262,21 +244,20 @@ def _decode_core(q, cache: KVCache, new_k, new_v, pos, *, W, offset,
     dev = q.device
     slots = offset + torch.arange(s_loc, device=dev)
 
-    if update:
+    if update and quant:
+        # K and V quantized into their slot (pos mod W) - offset; the
+        # kernel (one launch) computes the slot on the device
+        store = (kernel_ops.quantize_kv_store_ if use_kernels
+                 else QZ.quantize_kv_store_plain_)
+        store(new_k[:, 0], new_v[:, 0], k_cache, v_cache, ks, vs, pos, W,
+              offset, floor=1e-8)
+    elif update:
         write_slot = torch.remainder(pos, W) - offset
         in_range = (write_slot >= 0) & (write_slot < s_loc)
         clamped = torch.clamp(write_slot, 0, s_loc - 1)
         bidx = torch.arange(B, device=dev)
-        if quant:
-            nk_q, nk_s = _quantize_kv(new_k[:, 0], use_kernels)
-            nv_q, nv_s = _quantize_kv(new_v[:, 0], use_kernels)
-            _write_slot_(k_cache, nk_q, bidx, clamped, in_range)
-            _write_slot_(v_cache, nv_q, bidx, clamped, in_range)
-            _write_slot_(ks, nk_s, bidx, clamped, in_range)
-            _write_slot_(vs, nv_s, bidx, clamped, in_range)
-        else:
-            _write_slot_(k_cache, new_k[:, 0], bidx, clamped, in_range)
-            _write_slot_(v_cache, new_v[:, 0], bidx, clamped, in_range)
+        QZ.write_slot_(k_cache, new_k[:, 0], bidx, clamped, in_range)
+        QZ.write_slot_(v_cache, new_v[:, 0], bidx, clamped, in_range)
 
     valid = _ring_valid(pos, W, slots)                       # (B, s_loc)
     kf = _dequantize_kv(k_cache, ks) if quant else k_cache
@@ -340,20 +321,12 @@ def prefill_cache(params, x, positions, cfg: ModelConfig,
                             if cfg.attn_window else x.shape[1])
     if cfg.attn_window:
         W = min(W, cfg.attn_window)
-    S = x.shape[1]
-    if S > W:
-        k, v = k[:, -W:], v[:, -W:]
-        # ring layout: slot = p mod W; the tail slice starts at position S-W,
-        # which lands on slot (S-W) mod W — roll so slots line up.
-        shift = (S - W) % W
-        k = torch.roll(k, shift, dims=1)
-        v = torch.roll(v, shift, dims=1)
-    elif S < W:
-        # identity layout; tail slots are unwritten (invalid until pos wraps)
-        pad = (0, 0, 0, 0, 0, W - S)
-        k, v = torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad)
     if quant:
-        kq, ksc = _quantize_kv(k, use_kernels)
-        vq, vsc = _quantize_kv(v, use_kernels)
+        # the ring layout and the quantizer (one launch of the kernel);
+        # the floor is the reference ``_quantize_kv``'s 1e-8
+        store = (kernel_ops.quantize_kv_prefill if use_kernels
+                 else QZ.quantize_kv_prefill_plain)
+        kq, vq, ksc, vsc = store(k, v, W, floor=1e-8)
         return KVCache(k=kq, v=vq, k_scale=ksc, v_scale=vsc)
+    k, v = QZ.ring_layout(k, W), QZ.ring_layout(v, W)
     return KVCache(k=k.contiguous(), v=v.contiguous())

@@ -43,7 +43,6 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.fleet import migrate as PM  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import quantize as PQ  # noqa: E402
-from repro_torch.models import attention as PA  # noqa: E402
 from repro_torch.models import transformer as PT  # noqa: E402
 
 AMOEBA = dict(split_threshold=0.3, fuse_threshold=0.05, min_phase_steps=2)
@@ -289,18 +288,27 @@ def test_serve_corpus_identical_and_predictor_within_tolerance():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_kv_kernel_path_equals_plain_on_cpu(dtype):
-    """Under ``use_kernels`` the KV vectors go through ``ops.quantize_int8``
-    (on a CPU tensor: its plain version); codes and scales are the plain
-    path's exactly, and no launch is counted."""
+    """Under ``use_kernels`` the KV vectors go through the int8 stores of
+    ``ops`` (on CPU tensors: their plain versions); codes and scales are
+    the plain quantizer's at the KV floor exactly, and no launch is
+    counted."""
     rng = np.random.default_rng(9)
     x = rng.standard_normal((2, 7, 3, 32)).astype(np.float32) * 2
     x[0, 1, 2] = 0.0                    # an all-zero vector: the floor
     x[1, 3, 0] = 1e-10                  # amax between 1e-12 and 1e-8
     xt = torch.from_numpy(x).to(getattr(torch, dtype))
     ops.reset_launches()
-    qk, sk = PA._quantize_kv(xt, use_kernels=True)
-    qp, sp = PA._quantize_kv(xt)
-    assert ops.launches["quantize_int8"] == 0
+    # prefill: a ring as long as the prompt is the identity layout
+    qk, _, sk, _ = ops.quantize_kv_prefill(xt, xt, W=7, floor=1e-8)
+    qp, sp = PQ.quantize_int8_plain(xt, floor=1e-8)
     assert torch.equal(qk, qp) and torch.equal(sk, sp)
+    # decode: position p of every batch row into slot p of a 7-slot ring
+    kc, ks = torch.zeros_like(qp), torch.ones_like(sp)
+    for p in range(7):
+        ops.quantize_kv_store_(xt[:, p], xt[:, p], kc, kc.clone(), ks,
+                               ks.clone(), torch.full((2,), p), W=7,
+                               floor=1e-8)
+    assert torch.equal(kc, qp) and torch.equal(ks, sp)
+    assert ops.launches["quantize_int8"] == 0
     assert qk.shape == xt.shape and sk.shape == xt.shape[:-1] + (1,)
     assert float(sp[0, 1, 2, 0]) == np.float32(1e-8) / np.float32(127.0)

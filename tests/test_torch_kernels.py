@@ -405,6 +405,11 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                          for x in _selective_inputs(1, 4, 8, 8)))
     q, s = ops.quantize_int8(q.reshape(-1, 32), floor=1e-8)
     assert q.dtype == torch.int8 and s.shape == (16, 1)
+    kv = torch.zeros(1, 8, 2, 32)
+    caches = ops.quantize_kv_prefill(kv, kv, W=8)
+    assert caches[0].shape == (1, 8, 2, 32) and caches[2].shape == (1, 8, 2, 1)
+    ops.quantize_kv_store_(kv[:, 0], kv[:, 0], *caches, torch.tensor([9]),
+                           W=8)
     assert ops.launches == {"flash_attention": 0, "rmsnorm": 0,
                             "ssm_scan": 0, "rglru_scan": 0,
                             "quantize_int8": 0}
