@@ -37,7 +37,21 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              launch: 1 launch per layer per prefill and decode call.  At
              least one steal and one live migration must run, and the
              books must balance.
-5. parity  — full width, bf16, reduced depth (qwen3-14b and falcon-mamba-7b
+5. cluster — the cluster path, on the fleet phase's weights:
+             ``ClusterEngine`` with 2 chips x 2 groups of capacity 8
+             serving full-width qwen3-14b with an int8 KV cache, on the
+             tiered mesh (``ClusterConfig``'s NoC, link and network
+             prices): chip-first stealing, cross-chip steals in flight,
+             live migration priced by tier on the int8 wire layout, region
+             gathers, leases, ``obs="full"``.  The books must balance,
+             decode logits be finite, flash launch 40 times per prefill
+             call and the quantize kernel 40 times per prefill and decode
+             call; the run's summary (its cluster and migration blocks
+             included) and event stream must equal those of the vec
+             engine's replay of the same configuration without a model;
+             the stream, exported to ``build/`` as JSONL, must read back
+             equal, and its Chrome trace hold one process per chip.
+6. parity  — full width, bf16, reduced depth (qwen3-14b and falcon-mamba-7b
              at 2 layers, recurrentgemma-9b at 5, qwen3-14b with the int8
              KV cache): prefill and 8 decode-step logits with
              ``use_kernels=True`` against ``use_kernels=False``, and every
@@ -679,6 +693,15 @@ def kernel_phase(hw):
     prefill = store_prefill_case(4, 2048, 8, 128, 2304, "bfloat16", hw,
                                  flush)
     store_prefill_case(2, 2500, 8, 128, 2304, "bfloat16", hw, flush)
+    # the cluster path's own shapes: prefill calls of 8- and 16-token
+    # prompts (at most a group's 8 rows), the norms of their rows, and the
+    # int8 stores into its 256-slot rings
+    flash_case(8, 40, 8, 16, 128, "bfloat16", True, None, hw, flush)
+    flash_case(3, 40, 8, 8, 128, "bfloat16", True, None, hw, flush)
+    norm_case(8 * 16, 5120, "bfloat16", hw, flush)
+    norm_case(8 * 16 * 40, 128, "bfloat16", hw, flush)
+    store_decode_case(8, 8, 128, CLUSTER_WINDOW, "bfloat16", hw, flush)
+    store_prefill_case(8, 16, 8, 128, CLUSTER_WINDOW, "bfloat16", hw, flush)
     del flush
     torch.cuda.empty_cache()
     return {"flash_attention": flash[(2048, "bfloat16")], "rmsnorm": norm,
@@ -977,13 +1000,11 @@ def _tensors(tree):
     return []
 
 
-def fleet_phase(smi):
+def qwen_weights():
+    """Full-width bf16 qwen3-14b on the card, shared by the fleet and
+    cluster phases; returns (cfg, params, bytes the weights hold)."""
     import torch
-    from repro_torch import fleet as F
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import (AmoebaConfig, FleetConfig,
-                                          LeaseConfig, MigrationConfig)
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
 
     cfg = get_config("qwen3-14b")                 # full width, bf16
@@ -993,6 +1014,49 @@ def fleet_phase(smi):
     torch.cuda.synchronize()
     log(f"fleet: {cfg.name} {cfg.num_layers} layers, init "
         f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params, sum(t.numel() * t.element_size()
+                            for t in _tensors(params))
+
+
+def hook_moves(grp, moves, cost, cfg, window):
+    """Record every live migration's moved KV rows (int8 codes and fp32
+    scales) next to what ``cost`` prices them at."""
+    import torch
+    extract = grp.extract_live
+
+    def run(req):
+        out = extract(req)
+        if out is not None:
+            seq = len(req.prompt) + len(req.generated)
+            kv = [t for t in _tensors(out[0]) if t.dim() >= 4]
+            assert {t.dtype for t in kv} == {torch.int8, torch.float32}
+            row = sum(t.numel() * t.element_size() for t in kv)
+            moves.append(dict(
+                rid=req.rid, seq_len=seq,
+                priced_bytes=cost.kv_bytes(seq, cfg, window),
+                row_bytes=row,
+                row_bytes_live=row * min(seq, window) // window))
+        return out
+    grp.extract_live = run
+
+
+def released(weight_bytes):
+    """Drop what a phase left behind; only the shared weights may stay."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() < weight_bytes + 1e9, \
+        (torch.cuda.memory_allocated(), weight_bytes)
+
+
+def fleet_phase(cfg, params, weight_bytes, smi):
+    import torch
+    from repro_torch import fleet as F
+    from repro_torch.configs.base import (AmoebaConfig, FleetConfig,
+                                          LeaseConfig, MigrationConfig)
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
     rt = T.Runtime(use_kernels=True, kv_quant=True)
 
     def fleet_cfg(quantized, engine="object"):
@@ -1007,30 +1071,9 @@ def fleet_phase(smi):
     eng = F.FleetEngine(cfg, params, rt=rt, fleet=fleet_cfg(True))
     paths = PathSpans(cfg)
     moves = []
-
-    def record_moves(grp):
-        extract = grp.extract_live
-
-        def run(req):
-            out = extract(req)
-            if out is not None:
-                seq = len(req.prompt) + len(req.generated)
-                kv = [t for t in _tensors(out[0]) if t.dim() >= 4]
-                assert {t.dtype for t in kv} == {torch.int8, torch.float32}
-                row = sum(t.numel() * t.element_size() for t in kv)
-                moves.append(dict(
-                    rid=req.rid, seq_len=seq,
-                    priced_bytes=eng.planner.cost.kv_bytes(
-                        seq, cfg, FLEET_WINDOW),
-                    row_bytes=row,
-                    row_bytes_live=row * min(seq, FLEET_WINDOW)
-                    // FLEET_WINDOW))
-            return out
-        grp.extract_live = run
-
     for grp in eng.groups:
         paths.hook(grp)
-        record_moves(grp)
+        hook_moves(grp, moves, eng.planner.cost, cfg, FLEET_WINDOW)
     trace = fleet_trace(F, cfg.vocab_size)
     torch.cuda.reset_peak_memory_stats()
     eng.submit(trace)
@@ -1090,17 +1133,152 @@ def fleet_phase(smi):
         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
         launches=launches, moves=moves, planner_by_wire=veto, card=smi)
     log("fleet", json.dumps(summary))
-    del eng, grp, paths, record_moves      # hooks and groups form a cycle
+    del eng, grp, paths                    # hooks and groups form a cycle
     decode_profile(cfg, params, rt)        # launches per int8 decode call
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    assert torch.cuda.memory_allocated() < 1e9, torch.cuda.memory_allocated()
+    released(weight_bytes)
     return launches
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: path parity — kernels vs plain at full width, 2 layers
+# Phase 5: the cluster path — ClusterEngine on a tiered 2-chip mesh
+# ---------------------------------------------------------------------------
+
+CLUSTER_CHIPS, CLUSTER_GROUPS_PER_CHIP, CLUSTER_CAPACITY = 2, 2, 8
+CLUSTER_WINDOW = 256
+# multichip_imbalanced_trace over 24 ticks, seed 19: 71 requests from 4
+# shards (chip 0's first group hot and bursty, its chipmate warm, chip 1
+# trickling), prompts of 8 or 16 tokens, outputs of 3 to 48.  The vec
+# engine's replay of this configuration (tests/test_torch_cluster.py)
+# steals on chip and across chips, live-migrates once within a chip and
+# once across, gathers regions and grants leases
+CLUSTER_HORIZON, CLUSTER_SEED = 24, 19
+
+
+def cluster_cfg(engine):
+    from repro_torch.configs.base import (AmoebaConfig, ClusterConfig,
+                                          FleetConfig, LeaseConfig,
+                                          MigrationConfig)
+    return FleetConfig(
+        num_groups=CLUSTER_CHIPS * CLUSTER_GROUPS_PER_CHIP,
+        capacity=CLUSTER_CAPACITY, window=CLUSTER_WINDOW, mode="dynamic",
+        router="sticky", engine=engine, rebalance_every=4,
+        amoeba=AmoebaConfig(**AMOEBA),
+        migrate=MigrationConfig(enabled=True, live=True, quantized_kv=True),
+        lease=LeaseConfig(enabled=True),
+        cluster=ClusterConfig(groups_per_chip=CLUSTER_GROUPS_PER_CHIP),
+        obs="full")
+
+
+def cluster_trace(F, vocab):
+    return F.multichip_imbalanced_trace(
+        CLUSTER_HORIZON, vocab, seed=CLUSTER_SEED, chips=CLUSTER_CHIPS,
+        groups_per_chip=CLUSTER_GROUPS_PER_CHIP)
+
+
+def _scrub(summary):
+    return {k: v for k, v in summary.items()
+            if k not in ("wall_s", "ticks_per_sec")}
+
+
+def cluster_phase(cfg, params, weight_bytes, smi):
+    import torch
+    from repro_torch import fleet as F
+    from repro_torch.cluster import ClusterEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.obs import read_jsonl, write_chrome_trace, write_jsonl
+
+    rt = T.Runtime(use_kernels=True, kv_quant=True)
+    eng = ClusterEngine(cfg, params, rt=rt, fleet=cluster_cfg("object"))
+    paths = PathSpans(cfg)
+    moves = []
+    for grp in eng.groups:
+        paths.hook(grp)
+        hook_moves(grp, moves, eng.planner.true_cost, cfg, CLUSTER_WINDOW)
+    trace = cluster_trace(F, cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    eng.submit(trace)
+    ops.reset_launches()                           # zero just before the run
+    t = time.perf_counter()
+    s = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(ops.launches)                  # read just after
+
+    assert not bool(paths.nonfinite), "cluster: non-finite decode logits"
+    assert eng.completed == len(trace) == s["completed"], s["completed"]
+    assert all(r.done for r in trace)
+    assert all(len(r.generated) == r.max_new_tokens for r in trace)
+    assert eng.useful_tokens == sum(len(r.generated) for r in trace)
+    assert sum(g.stats.prefill_tokens for g in eng.groups) == \
+        sum(len(r.prompt) for r in trace)
+    assert all(r.finish is not None and r.finish >= r.arrival for r in trace)
+    assert eng.planner.in_flight_requests() == []  # nothing left in the air
+    n_prefill, n_decode = paths.prefill_calls, len(paths.spans["decode"])
+    layers = cfg.num_layers
+    assert launches["flash_attention"] == layers * n_prefill, launches
+    assert launches["quantize_int8"] == layers * (n_prefill + n_decode), \
+        (launches, n_prefill, n_decode)
+    assert launches["rmsnorm"] > 0, launches
+    mig, cl = s["migration"], s["cluster"]
+    assert len(moves) == mig["live_migrations"], moves
+    # the same control plane without the model: the vec engine plans from
+    # counts alone, so the card's run must equal it exactly
+    vec = ClusterEngine(cfg, None, fleet=cluster_cfg("vec"))
+    vec.submit(cluster_trace(F, cfg.vocab_size))
+    vs = vec.run()
+    for block in ("cluster", "migration"):
+        assert s[block] == vs[block], (block, s[block], vs[block])
+    assert _scrub(s) == _scrub(vs)
+    events = [e.as_dict() for e in eng.obs.events()]
+    assert events == [e.as_dict() for e in vec.obs.events()]
+    # the event stream through the exporters
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    jsonl, chrome = out / "cluster_trace.jsonl", out / "cluster_trace.json"
+    n = write_jsonl(str(jsonl), eng.obs.events(), meta=eng.obs.meta)
+    meta, back = read_jsonl(str(jsonl))
+    assert n == len(events) and back == events and meta == eng.obs.meta
+    write_chrome_trace(str(chrome), eng.obs.events(), meta=eng.obs.meta)
+    with open(chrome) as f:
+        trace_events = json.load(f)["traceEvents"]
+    procs = sorted(e["args"]["name"] for e in trace_events
+                   if e.get("name") == "process_name")
+    assert procs == [f"chip {c}" for c in range(CLUSTER_CHIPS)], procs
+
+    secs = paths.seconds()
+    in_flight = [e for e in events
+                 if e["kind"] == "steal" and e["payload"].get("in_flight")]
+    summary = dict(
+        arch=cfg.name, layers=layers, chips=CLUSTER_CHIPS,
+        groups_per_chip=CLUSTER_GROUPS_PER_CHIP, capacity=CLUSTER_CAPACITY,
+        window=CLUSTER_WINDOW, kv_quant=True, requests=len(trace),
+        prompt_tokens=sum(len(r.prompt) for r in trace),
+        ticks=s["wall_ticks"], efficiency=s["efficiency"],
+        latency_p50=s["latency"]["p50"], latency_p99=s["latency"]["p99"],
+        steals_by_tier={"noc": mig["intra_chip_steals"],
+                        "cross_chip": mig["cross_chip_steals"]},
+        cross_chip_steals_in_flight=len(in_flight),
+        vetoed_cross_chip=mig["vetoed_cross_chip"],
+        live_migrations={"noc": mig["intra_chip_live"],
+                         "cross_chip": mig["cross_chip_live"]},
+        regions={k: cl["regions"][k] for k in ("gathered", "released")},
+        tier_bytes=cl["tier_bytes"], tier_stall_ticks=cl["tier_stall_ticks"],
+        lease_grants=s["lease"]["grants"], events=len(events),
+        prefill_calls=n_prefill, decode_calls=n_decode,
+        prefill_tok_s=sum(len(r.prompt) for r in trace) / secs["prefill"],
+        decode_tok_s=(eng.useful_tokens - len(trace)) / secs["decode"],
+        prefill_s=secs["prefill"], decode_s=secs["decode"], wall_s=wall,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=launches, moves=moves, card=smi)
+    log("cluster", json.dumps(summary))
+    del eng, vec, grp, paths               # hooks and groups form a cycle
+    released(weight_bytes)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: path parity — kernels vs plain at full width, 2 layers
 # ---------------------------------------------------------------------------
 
 # (arch, layers, batch, prompt length, engine window, int8 KV cache);
@@ -1309,8 +1487,15 @@ def main() -> int:
         by_phase[arch] = serve_phase(arch, n, prompts, window, smi)
         log(f"serve {arch}: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    by_phase["fleet:qwen3-14b"] = fleet_phase(smi)
+    cfg, params, weight_bytes = qwen_weights()
+    by_phase["fleet:qwen3-14b"] = fleet_phase(cfg, params, weight_bytes, smi)
     log(f"fleet: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    by_phase["cluster:qwen3-14b"] = cluster_phase(cfg, params, weight_bytes,
+                                                  smi)
+    log(f"cluster: {time.perf_counter() - t:.1f} s")
+    del params
+    released(0)
     t = time.perf_counter()
     for case in PARITY:
         parity_phase(*case)

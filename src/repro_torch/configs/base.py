@@ -246,7 +246,7 @@ H100 = HardwareConfig(name="h100-sxm", peak_flops=989e12,
 class AmoebaConfig:
     """Paper §4: controller + split/fuse policy knobs.
 
-    ``policy`` selects the repro.control decision stack: ``threshold``
+    ``policy`` selects the repro_torch.control decision stack: ``threshold``
     (fixed-ratio hysteresis), ``predictor`` (logistic inference; needs
     ``predictor_path`` or an injected model), ``oracle`` (true
     slot-cost argmax — the upper bound), ``online`` (predictor with
@@ -262,7 +262,7 @@ class AmoebaConfig:
     min_phase_steps: int = 8
     regroup_policy: str = "warp_regroup"   # "direct_split" | "warp_regroup"
     predictor_path: Optional[str] = None   # trained coefficient file
-    # -- repro.control plane ------------------------------------------------
+    # -- repro_torch.control plane ------------------------------------------
     policy: str = "threshold"       # threshold | predictor | oracle | online
     max_ways: int = 2               # max parts per group topology
     # heterogeneous compositions: allow unequal part sizes like (5, 3)
@@ -284,12 +284,12 @@ class AmoebaConfig:
 class MigrationConfig:
     """Chip-level work stealing and KV-costed request migration.
 
-    Knobs for :class:`repro.fleet.migrate.MigrationPlanner`.  Queue
+    Knobs for :class:`repro_torch.fleet.migrate.MigrationPlanner`.  Queue
     steals move *queued* requests from an overflowing group to a
     starving group's best-fitting part (no state travels, only the
     prompt).  Live migrations move *in-flight* requests with their
     decode state; the KV transfer is priced by
-    :class:`repro.fleet.migrate.KVTransferCost` — bytes follow from the
+    :class:`repro_torch.fleet.migrate.KVTransferCost` — bytes follow from the
     request's sequence length and the model config, the configured
     ``link_bandwidth`` converts them into stall ticks charged to the
     destination part — and the move must clear ``min_gain`` on the same
@@ -323,7 +323,7 @@ class MigrationConfig:
 class LeaseConfig:
     """Slack leases: sub-reconfiguration slot borrowing between parts.
 
-    Knobs for :class:`repro.fleet.lease.LeasePlanner`.  A part with idle
+    Knobs for :class:`repro_torch.fleet.lease.LeasePlanner`.  A part with idle
     slots lends them to a sibling part — same group, or an adjacent
     same-chip group over the NoC — for a bounded term: no topology
     move, no dwell clock, no reconfiguration stall.  The borrowed slots
@@ -355,13 +355,13 @@ class LeaseConfig:
 class ClusterConfig:
     """Hierarchical fleet-of-fleets on a 2D chip mesh with tiered links.
 
-    Knobs for ``repro.cluster``: groups sit at 2D coordinates and are
+    Knobs for ``repro_torch.cluster``: groups sit at 2D coordinates and are
     partitioned into chips (optionally grouped further into nodes);
     moving state between two groups is priced by the *tier* of the pair
     — intra-chip NoC, inter-chip link, or inter-node network — with a
     per-hop latency on top of the bandwidth term (see
-    :class:`repro.cluster.TieredTransferCost`).  The
-    :class:`repro.cluster.ClusterController` steers each chip's
+    :class:`repro_torch.cluster.TieredTransferCost`).  The
+    :class:`repro_torch.cluster.ClusterController` steers each chip's
     split-mix, authorizes cross-chip steals/live-migrations only when
     the tiered cost amortizes, and gathers regions of adjacent groups
     for long-context tail mass (``region_*``).
@@ -408,7 +408,7 @@ class FleetConfig:
     mode: str = "dynamic"           # dynamic | fused | split
     # tick engine: "object" decodes real tokens through the jitted model
     # (per-part jax calls); "vec" is the struct-of-arrays core
-    # (repro.fleet.vec) — same control plane, same summary stats, no
+    # (repro_torch.fleet.vec) — same control plane, same summary stats, no
     # model, orders of magnitude faster for scheduling-only sweeps
     engine: str = "object"
     long_threshold: int = 24        # length_aware: predicted-long cutoff
@@ -416,19 +416,19 @@ class FleetConfig:
     # chip-level FleetController: re-evaluate the fleet's split mix every
     # N wall ticks (0 = no chip-wide rebalancing; groups act alone)
     rebalance_every: int = 0
-    # cross-group work stealing / live migration (repro.fleet.migrate)
+    # cross-group work stealing / live migration (repro_torch.fleet.migrate)
     migrate: MigrationConfig = MigrationConfig()
     # slack leases: bounded slot borrowing below the reconfiguration
-    # layer (repro.fleet.lease)
+    # layer (repro_torch.fleet.lease)
     lease: LeaseConfig = LeaseConfig()
     # reserve a 1-slot quarantine part on this group (exact-composition
     # fleet hint); reserved parts are steal-ineligible for the planner
     quarantine_group: Optional[int] = None
     amoeba: AmoebaConfig = AmoebaConfig()
-    # the hierarchical layer above the fleet (repro.cluster): groups on
+    # the hierarchical layer above the fleet (repro_torch.cluster): groups on
     # a 2D chip mesh with tiered transfer costs; None = flat fleet
     cluster: Optional[ClusterConfig] = None
-    # structured event tracing (repro.obs): "off" keeps summaries
+    # structured event tracing (repro_torch.obs): "off" keeps summaries
     # bit-identical, "summary" counts events, "full" retains the ring
     # buffer + per-tick metrics for the exporters and decision audit
     obs: str = "off"

@@ -6,7 +6,7 @@ trace-driven workloads, rebalanced by cross-group work stealing and
 KV-costed live migration (``repro_torch.fleet.migrate``), topped up by
 bounded slot leases (``repro_torch.fleet.lease``), and measured by
 fleet-wide telemetry.  Counterpart of ``repro/fleet``; the cluster layer
-built on it (``repro/cluster``) is not ported yet.
+built on it is ``repro_torch.cluster``.
 """
 from repro_torch.fleet.lease import Lease, LeasePlanner
 from repro_torch.fleet.migrate import (KVTransferCost, Migration,

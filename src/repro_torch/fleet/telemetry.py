@@ -23,11 +23,13 @@ pipe of the monitor -> predict -> reconfigure loop.
 
 Telemetry is the *aggregate* view; the per-decision view lives in
 :mod:`repro_torch.obs` — a structured :class:`~repro_torch.obs.events.EventLog`
-(reconfig/steal/migrate/... records with tick + (gid, part) address) and
-a per-tick :class:`~repro_torch.obs.metrics.MetricsRegistry`.  When
-``FleetConfig.obs`` is enabled, :meth:`summary` carries the event counts
-under an ``"obs"`` block.  The reference's decision audit, exporters and
-text reports (``repro/obs/{audit,export,report}.py``) are not ported yet.
+(reconfig/steal/migrate/... records with tick + (gid, part) address), a
+per-tick :class:`~repro_torch.obs.metrics.MetricsRegistry`, and the
+decision audit (:mod:`repro_torch.obs.audit`) joining each prediction to
+its realized outcome.  When ``FleetConfig.obs`` is enabled,
+:meth:`summary` carries the event counts under an ``"obs"`` block;
+exporters and the text reports are in :mod:`repro_torch.obs.export` /
+:mod:`repro_torch.obs.report`.
 
 Counterpart of ``repro/fleet/telemetry.py``; summaries are equal to the
 reference's on the same run.
@@ -260,7 +262,7 @@ class FleetTelemetry:
         leases = getattr(fleet_controller, "leases", None)
         if leases is not None:
             out["lease"] = leases.summary()
-        # the cluster layer (not ported yet): per-chip pressure, regions,
+        # the cluster layer (repro_torch.cluster): per-chip pressure, regions,
         # and per-tier byte/stall traffic from the tiered planner
         cluster_summary = getattr(fleet_controller, "cluster_summary", None)
         if cluster_summary is not None:
