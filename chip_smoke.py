@@ -21,13 +21,27 @@ Phases (every failure exits nonzero; no phase's failure is caught):
 3. serve   — the main paths, each through ``ServeEngine`` in bf16 at full
              width and depth, random weights from a seeded generator:
              qwen3-14b (40 layers, 16 requests), falcon-mamba-7b (64
-             layers, 12 requests) and recurrentgemma-9b (38 layers = 12
+             layers, 12 requests), recurrentgemma-9b (38 layers = 12
              repetitions + 2 remainder layers, 12 requests, prompts past
-             its 2048-token attention window).  Kernel launch counters are
-             zeroed just before each run and read just after; every
-             kernel of the model's path must have launched, once per
-             layer of its kind per prefill call, and the engine's books
-             must balance.
+             its 2048-token attention window), deepseek-moe-16b (28 MoE
+             layers, 64 routed experts top-6 + 2 shared, every expert on
+             every token as the reference's ``moe_dense``; 12 requests)
+             and qwen2-vl-7b (28 layers, M-RoPE, text prompts; 12
+             requests).  Kernel launch counters are zeroed just before
+             each run and read just after; every kernel of the model's
+             path must have launched, once per layer of its kind per
+             prefill call, and the engine's books must balance.  Each
+             model's B4 S2048 prefill call is profiled (deepseek's with
+             its MoE FFNs' share of the device time), and qwen3-14b's and
+             deepseek-moe-16b's batch-8 decode call.  qwen2-vl-7b then
+             runs its vision path, which the engine cannot feed: one B2
+             S1536 prefill with 1024 patch embeddings and 16 decode steps
+             at ``pos + rope_offset``; flash must launch 28 times.
+   whisper — whisper-base at full width and depth (6 encoder + 6 decoder
+             layers) through ``prefill`` and ``decode_step``: B8, 1500
+             audio frames, 64-token prompts, window 448, 64 decode steps;
+             flash launches 12 times for the prefill (6 bidirectional,
+             6 causal) and the cross caches hold all 1500 frames.
 4. fleet   — the fleet path: ``FleetEngine`` with 4 reconfigurable groups
              of capacity 8 serving full-width qwen3-14b (40 layers) with
              an int8 KV cache, sticky routing onto a hot shard, work
@@ -51,12 +65,16 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              engine's replay of the same configuration without a model;
              the stream, exported to ``build/`` as JSONL, must read back
              equal, and its Chrome trace hold one process per chip.
-6. parity  — full width, bf16, reduced depth (qwen3-14b and falcon-mamba-7b
-             at 2 layers, recurrentgemma-9b at 5, qwen3-14b with the int8
-             KV cache): prefill and 8 decode-step logits with
-             ``use_kernels=True`` against ``use_kernels=False``, and every
-             int8 KV store of the kernel path against the plain store on
-             clones of the same caches, exactly.  Then one
+6. parity  — full width, bf16, reduced depth (qwen3-14b, falcon-mamba-7b,
+             deepseek-moe-16b and qwen2-vl-7b with 128 vision patches at 2
+             layers, recurrentgemma-9b at 5, qwen3-14b with the int8 KV
+             cache; whisper-base at its full depth over 1500 frames):
+             prefill and 8 decode-step logits with ``use_kernels=True``
+             against ``use_kernels=False``, and every int8 KV store of the
+             kernel path against the plain store on clones of the same
+             caches, exactly.  deepseek's plain path takes the kernel
+             path's expert choices (``PinnedRoutes``), and the rows whose
+             own top-k differed are counted.  Then one
              full-width falcon-mamba SSM block and one recurrentgemma
              RG-LRU block in float32 at B1 S2048, ``use_kernel=True``
              against the chunked torch scan, on the output and the final
@@ -70,6 +88,7 @@ before that the kernels' JSON record, and the last line
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -702,6 +721,18 @@ def kernel_phase(hw):
     norm_case(8 * 16 * 40, 128, "bfloat16", hw, flush)
     store_decode_case(8, 8, 128, CLUSTER_WINDOW, "bfloat16", hw, flush)
     store_prefill_case(8, 16, 8, 128, CLUSTER_WINDOW, "bfloat16", hw, flush)
+    # the other families' shapes: whisper-base's bidirectional encoder over
+    # 1500 frames (30 s of audio; not a multiple of the kernel's tiles) and
+    # its 448-token decoder context at hd 64, qwen2-vl-7b's GQA groups of 7
+    # and deepseek-moe-16b's MHA at hd 128; their block norms at D 512,
+    # 3584 and 2048
+    flash_case(8, 8, 8, 1500, 64, "bfloat16", False, None, hw, flush)
+    flash_case(8, 8, 8, 448, 64, "bfloat16", True, None, hw, flush)
+    flash_case(1, 28, 4, 2048, 128, "bfloat16", True, None, hw, flush)
+    flash_case(1, 16, 16, 2048, 128, "bfloat16", True, None, hw, flush)
+    norm_case(8 * 1500, 512, "bfloat16", hw, flush)
+    norm_case(4 * 2048, 3584, "bfloat16", hw, flush)
+    norm_case(4 * 2048, 2048, "bfloat16", hw, flush)
     del flush
     torch.cuda.empty_cache()
     return {"flash_attention": flash[(2048, "bfloat16")], "rmsnorm": norm,
@@ -733,10 +764,28 @@ def check_books(requests, stats):
 # model runs at full width and depth; max_new_tokens come from {8, 16, 64}
 SERVES = [("qwen3-14b", 16, (512, 1024, 2048), 2304),
           ("falcon-mamba-7b", 12, (512, 1024, 2048), 2304),
-          ("recurrentgemma-9b", 12, (512, 1024, 3072), 3200)]
+          ("recurrentgemma-9b", 12, (512, 1024, 3072), 3200),
+          ("deepseek-moe-16b", 12, (512, 1024, 2048), 2304),
+          ("qwen2-vl-7b", 12, (512, 1024, 2048), 2304)]
 # the kernel each block kind's prefill launches once per layer
 KIND_KERNEL = {"attn": "flash_attention", "ssm": "ssm_scan",
                "rglru": "rglru_scan"}
+
+
+def timed(fn, spans):
+    """``fn`` with CUDA events recorded around each call, appended to
+    ``spans`` as (start, end), with no added synchronization."""
+    import torch
+
+    def run(*a, **kw):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn(*a, **kw)
+        e.record()
+        spans.append((s, e))
+        return out
+    return run
 
 
 class PathSpans:
@@ -752,23 +801,10 @@ class PathSpans:
         self.prefill_calls = 0
         self.nonfinite = torch.zeros((), dtype=torch.bool, device="cuda")
 
-    def _span(self, name, fn):
-        import torch
-
-        def run(*a, **kw):
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = fn(*a, **kw)
-            e.record()
-            self.spans[name].append((s, e))
-            return out
-        return run
-
     def hook(self, grp):
         import torch
-        wave = self._span("prefill", grp._prefill_wave)
-        decode = self._span("decode", grp._decode)
+        wave = timed(grp._prefill_wave, self.spans["prefill"])
+        decode = timed(grp._decode, self.spans["decode"])
         vocab = self.cfg.vocab_size
 
         def prefill_wave(*a, **kw):
@@ -861,16 +897,19 @@ def serve_phase(arch, n_requests, prompts, window, smi):
     # collect the cycle, so this model's weights are freed before the next
     # phase loads its own
     del eng, paths
+    by_path = {arch: launches}
     rt = T.Runtime(use_kernels=True)
-    if arch == "qwen3-14b":
+    if arch == "qwen3-14b" or cfg.moe is not None:
         decode_profile(cfg, params, rt)
     prefill_profile(cfg, params, rt, 4 * 2048 // max(prompts), max(prompts),
                     window)
+    if cfg.vision_stub:
+        by_path[f"vision:{arch}"] = vision_phase(cfg, params, rt, smi)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     assert torch.cuda.memory_allocated() < 1e9, torch.cuda.memory_allocated()
-    return launches
+    return by_path
 
 
 def decode_profile(cfg, params, rt, B=8, S=512, steps=4):
@@ -960,7 +999,163 @@ def prefill_profile(cfg, params, rt, B, S, window):
                hand_written_ms={k: v for k, v in ours.items() if v > 0},
                top=[(e.key[:60], round(e.self_device_time_total / 1e3, 4),
                      e.count) for e in top])
+    if cfg.moe is not None:
+        # the MoE FFNs' share: CUDA events around every moe_forward call of
+        # one more (unprofiled) call; the card is busy through a prefill
+        # call (busy share ~1), so the spans hold the FFNs' device time
+        from repro_torch.models import moe as M
+        spans = []
+        with call_spans(M, "moe_forward", spans):
+            run()
+        moe_ms = sum(s.elapsed_time(e) for s, e in spans)
+        rec.update(moe_calls=len(spans), moe_ms=moe_ms,
+                   moe_share_of_device=moe_ms / dev_ms if dev_ms > 0
+                   else "not measured")
     log("prefill_profile", json.dumps(rec))
+
+
+@contextlib.contextmanager
+def call_spans(module, name, spans):
+    """``timed`` around every call of ``module.name`` while active."""
+    fn = getattr(module, name)
+    setattr(module, name, timed(fn, spans))
+    try:
+        yield spans
+    finally:
+        setattr(module, name, fn)
+
+
+def greedy_decode(params, logits, st, cfg, rt, steps):
+    """``steps`` greedy decode steps from a prefill's (logits, state), on
+    the host's clock; -> (logits, state, seconds, any logits non-finite)."""
+    import torch
+    from repro_torch.models import transformer as T
+    nonfinite = ~torch.isfinite(logits).all()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        nxt = torch.argmax(logits, dim=-1)[:, None]
+        logits, st = T.decode_step(params, st, nxt, cfg, rt)
+        nonfinite.logical_or_(~torch.isfinite(logits).all())
+    torch.cuda.synchronize()
+    return logits, st, time.perf_counter() - t, bool(nonfinite)
+
+
+def vision_phase(cfg, params, rt, smi, B=2, S=1536, window=1600, steps=16):
+    """qwen2-vl-7b's vision path, which the engine (token prompts only)
+    cannot drive: one prefill with ``max_vision_tokens`` patch embeddings
+    merged in front of the text (the vision stub's M-RoPE grid), then
+    greedy decode steps at ``pos + rope_offset``, ``rope_offset = side -
+    V``.  Launch counters are zeroed just before and read just after."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    V = cfg.max_vision_tokens
+    side = math.ceil(math.sqrt(V))
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     device="cuda", generator=g),
+             "vision_embeds": torch.randn(B, V, cfg.d_model, device="cuda",
+                                          dtype=torch.bfloat16, generator=g)}
+    torch.cuda.synchronize()
+    ops.reset_launches()                           # zero just before the run
+    t = time.perf_counter()
+    logits, st = T.prefill(params, batch, cfg, rt, window=window)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_launches = dict(ops.launches)
+    assert bool((st.rope_offset == side - V).all()), st.rope_offset
+    logits, st, decode_s, nonfinite = greedy_decode(params, logits, st, cfg,
+                                                    rt, steps)
+    launches = dict(ops.launches)                  # read just after
+    assert not nonfinite, "vision: non-finite logits"
+    assert bool((st.pos == S + steps).all()), st.pos
+    assert prefill_launches["flash_attention"] == cfg.num_layers, \
+        prefill_launches
+    assert launches["flash_attention"] == cfg.num_layers, launches
+    assert launches["rmsnorm"] > 0 and launches["quantize_int8"] == 0, \
+        launches
+    rec = dict(arch=cfg.name, batch=B, prompt=S, vision_tokens=V,
+               window=window, rope_offset=side - V, decode_steps=steps,
+               prefill_s=prefill_s, decode_s=decode_s,
+               prefill_tok_s=B * S / prefill_s,
+               decode_tok_s=B * steps / decode_s,
+               decode_ms_per_call=decode_s / steps * 1e3,
+               prefill_launches=prefill_launches, launches=launches, card=smi)
+    log("vision", json.dumps(rec))
+    return launches
+
+
+# (batch, audio frames, decoder prompt, window, decode steps): 1500 frames
+# are whisper's 30 s of audio, 448 its decoder context (Radford et al.
+# 2022, arXiv:2212.04356)
+WHISPER = (8, 1500, 64, 448, 64)
+
+
+def whisper_phase(smi):
+    """whisper-base at full width and depth (6 encoder + 6 decoder layers)
+    through the model's own entry points, ``prefill`` and ``decode_step``:
+    the engine prefills from token prompts alone, as the reference's
+    does.  One prefill, then greedy decode steps; flash must launch once
+    per encoder layer (bidirectional) and once per decoder layer (causal)
+    for the prefill, and the decoder's cross caches hold every frame."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+
+    B, frames, prompt, window, steps = WHISPER
+    cfg = get_config("whisper-base")               # full width, bf16
+    params = T.init_model(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                          "cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, prompt),
+                                     device="cuda", generator=g),
+             "audio_embeds": torch.randn(B, frames, cfg.d_model,
+                                         device="cuda", dtype=torch.bfloat16,
+                                         generator=g)}
+    rt = T.Runtime(use_kernels=True)
+    T.prefill(params, batch, cfg, rt, window=window)   # warm: cuBLAS picks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                           # zero just before the run
+    t = time.perf_counter()
+    logits, st = T.prefill(params, batch, cfg, rt, window=window)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    prefill_launches = dict(ops.launches)
+    logits, st, decode_s, nonfinite = greedy_decode(params, logits, st, cfg,
+                                                    rt, steps)
+    launches = dict(ops.launches)                  # read just after
+    assert not nonfinite, "whisper: non-finite logits"
+    assert logits.shape == (B, cfg.vocab_size), logits.shape
+    cross = st.reps[0]["cross"]
+    assert tuple(cross.k.shape) == (cfg.num_layers, B, frames,
+                                    cfg.num_kv_heads, cfg.resolved_head_dim)
+    assert bool((st.pos == prompt + steps).all()), st.pos
+    per_prefill = cfg.num_layers + cfg.encoder_layers
+    assert prefill_launches["flash_attention"] == per_prefill, \
+        prefill_launches
+    assert launches["flash_attention"] == per_prefill, launches
+    assert launches["rmsnorm"] > 0 and launches["quantize_int8"] == 0, \
+        launches
+    rec = dict(arch=cfg.name, layers=cfg.num_layers,
+               encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+               params_b=T.count_params(params) / 1e9, batch=B,
+               audio_frames=frames, prompt=prompt, window=window,
+               decode_steps=steps, cross_cache=list(cross.k.shape),
+               prefill_s=prefill_s, decode_s=decode_s,
+               prefill_tok_s=B * prompt / prefill_s,
+               prefill_frames_s=B * frames / prefill_s,
+               decode_tok_s=B * steps / decode_s,
+               decode_ms_per_call=decode_s / steps * 1e3,
+               prefill_launches=prefill_launches, launches=launches,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+    log("whisper", json.dumps(rec))
+    del params, st, logits
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1281,13 +1476,59 @@ def cluster_phase(cfg, params, weight_bytes, smi):
 # Phase 6: path parity — kernels vs plain at full width, 2 layers
 # ---------------------------------------------------------------------------
 
-# (arch, layers, batch, prompt length, engine window, int8 KV cache);
-# recurrentgemma-9b's 5 layers are one repetition and the two remainder
-# layers, and its prompt runs past the 2048-token attention window
-PARITY = [("qwen3-14b", 2, 2, 256, 264, False),
-          ("falcon-mamba-7b", 2, 2, 256, 264, False),
-          ("recurrentgemma-9b", 5, 2, 2100, 2108, False),
-          ("qwen3-14b", 2, 2, 256, 264, True)]
+# (arch, layers, batch, prompt length, engine window, int8 KV cache, the
+# stub input and its rows); recurrentgemma-9b's 5 layers are one repetition
+# and the two remainder layers, and its prompt runs past the 2048-token
+# attention window; qwen2-vl-7b takes 128 vision patches; whisper-base runs
+# at full depth (6 decoder layers over 6 encoder layers) over 1500 frames
+PARITY = [("qwen3-14b", 2, 2, 256, 264, False, None),
+          ("falcon-mamba-7b", 2, 2, 256, 264, False, None),
+          ("recurrentgemma-9b", 5, 2, 2100, 2108, False, None),
+          ("qwen3-14b", 2, 2, 256, 264, True, None),
+          ("deepseek-moe-16b", 2, 2, 256, 264, False, None),
+          ("qwen2-vl-7b", 2, 2, 256, 264, False, ("vision_embeds", 128)),
+          ("whisper-base", 6, 2, 64, 72, False, ("audio_embeds", 1500))]
+
+
+class PinnedRoutes:
+    """The kernel path's expert choices, replayed on the plain path.
+
+    Top-k routing is a discrete choice.  The two paths round in bf16 at
+    other points upstream of each router (flash against chunked attention),
+    so where a token's k-th and (k+1)-th expert probabilities nearly tie the
+    paths can pick different experts, and one swapped expert moves that
+    token's output by far more than a rounding.  So the kernel path (run
+    first) records each router call's ids; the plain path's router runs on
+    its own inputs, counts the token rows whose top-k set differs, and
+    returns the recorded ids with its own renormalised probabilities.
+    """
+
+    def __init__(self, module):
+        self.module, self.route = module, module._route
+        self.ids, self.replay = [], False
+        self.rows = self.swapped = 0
+
+    def __call__(self, params, x2d, cfg):
+        import torch
+        ids, w, aux, load = self.route(params, x2d, cfg)
+        if not self.replay:
+            self.ids.append(ids)
+            return ids, w, aux, load
+        want = self.ids.pop(0)
+        self.rows += ids.shape[0]
+        self.swapped += int((ids.sort(-1).values != want.sort(-1).values)
+                            .any(-1).sum())
+        probs = torch.softmax(x2d.float() @ params["router"], dim=-1)
+        top_p = probs.gather(1, want)
+        return (want, top_p / torch.clamp(top_p.sum(-1, keepdim=True),
+                                           min=1e-9), aux, load)
+
+    def __enter__(self):
+        self.module._route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module._route = self.route
 
 
 def _int8_caches(state):
@@ -1311,20 +1552,31 @@ def _cache_diff(a, b):
                                        for x, y in zip(sa, sb)))
 
 
-def parity_phase(arch, layers, B, S, window, kv_quant):
+def parity_phase(arch, layers, B, S, window, kv_quant, extra):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels import quantize as QZ
+    from repro_torch.models import moe as M
     from repro_torch.models import transformer as T
 
     cfg = get_config(arch).replace(num_layers=layers)
-    params = T.init_model(cfg, torch.Generator(device="cuda").manual_seed(1),
-                          "cuda")
-    toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (B, S)), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    params = T.init_model(cfg, g, "cuda")
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S)), device="cuda")}
+    if extra is not None:
+        key, rows = extra
+        batch[key] = torch.randn(B, rows, cfg.d_model, device="cuda",
+                                 dtype=torch.bfloat16, generator=g)
     rts = [T.Runtime(use_kernels=k, kv_quant=kv_quant) for k in (True, False)]
+    pin = PinnedRoutes(M) if cfg.moe is not None else None
+
+    def on(i):
+        """Path i (0 kernels, 1 plain) runs next."""
+        if pin is not None:
+            pin.replay = i == 1
     # every int8 KV store of the kernel path, held to the plain store on
     # clones of the same caches and inputs: codes and scales equal exactly
     store, prefill_store = ops.quantize_kv_store_, ops.quantize_kv_prefill
@@ -1350,31 +1602,39 @@ def parity_phase(arch, layers, B, S, window, kv_quant):
 
     ops.quantize_kv_store_, ops.quantize_kv_prefill = (checked_store,
                                                        checked_prefill)
-    # the final hidden states too: at 2 layers falcon-mamba's tied logits
-    # are dominated by each token's own embedding (|logit| ~ d_model), where
-    # a bf16 ulp hides what the blocks did
-    hid = [T.forward_hidden(params, *T.embed_inputs(params, {"tokens": toks},
-                                                    cfg), cfg, rt)[0].float()
-           for rt in rts]
-    hid_err = float((hid[0] - hid[1]).abs().max())
-    hid_tol = max(PARITY_TOL, PARITY_REL * float(hid[1].abs().max()))
-    del hid
-    outs = [T.prefill(params, {"tokens": toks}, cfg, rt, window=window)
-            for rt in rts]
-    errs = [float((outs[0][0].float() - outs[1][0].float()).abs().max())]
-    absmax = float(outs[1][0].float().abs().max())
-    states = [o[1] for o in outs]
-    caches = {"prefill": _cache_diff(*states)} if kv_quant else {}
-    nxt = torch.argmax(outs[0][0], dim=-1)[:, None]
-    for _ in range(8):
-        lg = []
+    with pin if pin is not None else contextlib.nullcontext():
+        # the final hidden states too: at 2 layers falcon-mamba's tied
+        # logits are dominated by each token's own embedding (|logit| ~
+        # d_model), where a bf16 ulp hides what the blocks did
+        hid = []
         for i, rt in enumerate(rts):
-            logits, states[i] = T.decode_step(params, states[i], nxt, cfg, rt)
-            assert bool(torch.isfinite(logits).all())
-            lg.append(logits.float())
-        errs.append(float((lg[0] - lg[1]).abs().max()))
-        absmax = max(absmax, float(lg[1].abs().max()))
-        nxt = torch.argmax(lg[0], dim=-1)[:, None]   # same tokens to both
+            on(i)
+            hid.append(T.forward_hidden(
+                params, *T.embed_inputs(params, batch, cfg, rt), cfg,
+                rt)[0].float())
+        hid_err = float((hid[0] - hid[1]).abs().max())
+        hid_tol = max(PARITY_TOL, PARITY_REL * float(hid[1].abs().max()))
+        del hid
+        outs = []
+        for i, rt in enumerate(rts):
+            on(i)
+            outs.append(T.prefill(params, batch, cfg, rt, window=window))
+        errs = [float((outs[0][0].float() - outs[1][0].float()).abs().max())]
+        absmax = float(outs[1][0].float().abs().max())
+        states = [o[1] for o in outs]
+        caches = {"prefill": _cache_diff(*states)} if kv_quant else {}
+        nxt = torch.argmax(outs[0][0], dim=-1)[:, None]
+        for _ in range(8):
+            lg = []
+            for i, rt in enumerate(rts):
+                on(i)
+                logits, states[i] = T.decode_step(params, states[i], nxt, cfg,
+                                                  rt)
+                assert bool(torch.isfinite(logits).all())
+                lg.append(logits.float())
+            errs.append(float((lg[0] - lg[1]).abs().max()))
+            absmax = max(absmax, float(lg[1].abs().max()))
+            nxt = torch.argmax(lg[0], dim=-1)[:, None]   # same tokens to both
     ops.quantize_kv_store_, ops.quantize_kv_prefill = store, prefill_store
     if kv_quant:
         caches["decode_8"] = _cache_diff(*states)
@@ -1384,13 +1644,16 @@ def parity_phase(arch, layers, B, S, window, kv_quant):
     tol = PARITY_TOL if arch == "qwen3-14b" else max(PARITY_TOL,
                                                      PARITY_REL * absmax)
     rec = dict(arch=arch, layers=layers, batch=B, prompt=S,
-               kv_quant=kv_quant,
+               kv_quant=kv_quant, stub_input=extra,
+               routes_replayed=None if pin is None else dict(
+                   rows=pin.rows, swapped=pin.swapped, left=len(pin.ids)),
                max_abs_err_prefill=errs[0], max_abs_err_decode=max(errs[1:]),
                tol=tol, logit_absmax=absmax, max_abs_err_hidden=hid_err,
                hidden_tol=hid_tol, int8_writes_checked=checked,
                int8_cache_kernel_vs_plain_path=caches)
     log("parity", json.dumps(rec))
     assert max(errs) <= tol and hid_err <= hid_tol, rec
+    assert pin is None or (pin.rows > 0 and not pin.ids), rec
     del params, outs, states
     torch.cuda.empty_cache()
 
@@ -1484,8 +1747,11 @@ def main() -> int:
     by_phase = {}
     for arch, n, prompts, window in SERVES:
         t = time.perf_counter()
-        by_phase[arch] = serve_phase(arch, n, prompts, window, smi)
+        by_phase.update(serve_phase(arch, n, prompts, window, smi))
         log(f"serve {arch}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    by_phase["whisper-base"] = whisper_phase(smi)
+    log(f"whisper: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     cfg, params, weight_bytes = qwen_weights()
     by_phase["fleet:qwen3-14b"] = fleet_phase(cfg, params, weight_bytes, smi)

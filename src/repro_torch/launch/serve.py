@@ -5,7 +5,9 @@ the identical request trace — fused baseline, direct_split, warp_regroup —
 and reports slot-efficiency, makespan, and the split/fuse dynamics.  On a
 CUDA device the model runs through the hand-written kernels
 (``Runtime(use_kernels=True)``); ``--device cpu`` runs their plain
-versions.
+versions.  Every arch of ``configs`` runs, reduced, except whisper-base:
+the engine prefills from token prompts alone, as the reference's does, and
+has no way to feed whisper's ``audio_embeds``, so the launcher refuses it.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
         --requests 24 --capacity 8
@@ -39,17 +41,22 @@ def make_requests(cfg, n: int, seed: int):
     return reqs
 
 
-def main() -> None:
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-14b", choices=ARCH_IDS)
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--capacity", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=True)
+    if cfg.encoder_layers:
+        ap.error(f"--arch {args.arch}: an encoder-decoder model needs "
+                 "audio_embeds at prefill, and ServeEngine prefills from "
+                 "token prompts alone; run it through the model's own "
+                 "prefill and decode_step")
+    dev = resolve_device(args.device)
     params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
                           dev)
 

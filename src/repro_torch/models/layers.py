@@ -131,13 +131,18 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 def sinusoidal_positions(seq_len: int, d_model: int,
                          device=None) -> torch.Tensor:
     """Whisper-style fixed sinusoidal position embedding, (S, D)."""
+    return sinusoidal_at(torch.arange(seq_len, device=device), d_model)
+
+
+def sinusoidal_at(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The sinusoidal embedding of each position in ``pos`` -> (*pos, D)
+    (decode embeds each row's new token at its own position)."""
     half = d_model // 2
     freq = torch.exp(-math.log(10_000.0)
-                     * torch.arange(half, dtype=torch.float32, device=device)
-                     / (half - 1))
-    pos = torch.arange(seq_len, dtype=torch.float32,
-                       device=device)[:, None] * freq[None, :]
-    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=pos.device) / (half - 1))
+    ang = pos.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
-"""Model assembly: the dense, Mamba-SSM and RG-LRU hybrid stacks.
+"""Model assembly: every architecture of ``configs`` as one composable stack.
 
 Counterpart of ``repro/models/transformer.py``.  The layer sequence is
-``R`` repetitions of the arch's block pattern (``("attn",)`` for dense,
-``("ssm",)`` for falcon-mamba, ``("rglru", "rglru", "attn")`` for
-recurrentgemma) plus ``L mod len(pattern)`` remainder layers.  Parameters
+``R`` repetitions of the arch's block pattern (``("attn",)`` for dense, MoE,
+whisper's decoder and qwen2-vl, ``("ssm",)`` for falcon-mamba,
+``("rglru", "rglru", "attn")`` for recurrentgemma) plus
+``L mod len(pattern)`` remainder layers.  Parameters
 keep the reference's tree: ``params["reps"]`` is a tuple with one entry per
 pattern position whose leaves are stacked on a leading R axis, and
 ``params["rest"]`` a tuple of unstacked remainder blocks, so
@@ -13,24 +14,28 @@ reference's ``lax.scan`` over ``reps`` becomes a Python loop over R.
 Two entry points per program phase, as in the reference: :func:`prefill`
 (full-sequence forward that builds the decode state) and
 :func:`decode_step` (one new token against the cached state); plus
-:func:`logits_fn` for smoke-scale full logits.  The reference's MoE aux
-outputs do not exist here, so ``forward_hidden`` and ``logits_fn`` return
-no aux.  Training (``loss_fn``, activation checkpointing) is ROADMAP queue 1,
-item 8; MoE, whisper's encoder/cross-attention and qwen2-vl's M-RoPE are
-item 7 and raise ``NotImplementedError``.
+:func:`logits_fn` for smoke-scale full logits.  ``forward_hidden`` and
+``logits_fn`` return the MoE routing telemetry (``MoEAux``, zeros for a
+model without MoE) beside their result, as the reference's do.
+
+Whisper's encoder (:func:`encode`) runs under the caller's ``Runtime``, so
+its bidirectional attention takes the flash kernel with ``use_kernels``;
+the reference's ``embed_inputs`` runs it under its default runtime.  The
+function is the same either way.  Training (``loss_fn``, activation
+checkpointing) is ROADMAP queue 1, item 4.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, layers, rglru, ssm
-
-_ITEM7 = "is not ported yet (ROADMAP queue 1, item 7: other model families)"
-BLOCK_KINDS = ("attn", "ssm", "rglru")
+from repro_torch.models import attention, layers, moe, rglru, ssm
+from repro_torch.models.attention import KVCache
+from repro_torch.models.moe import MoEAux
 
 
 # ---------------------------------------------------------------------------
@@ -40,9 +45,11 @@ BLOCK_KINDS = ("attn", "ssm", "rglru")
 class Runtime(NamedTuple):
     """Execution knobs threaded through the stack.
 
-    The reference's fields that only MoE (``production``), training
-    (``remat``, ``loss_chunk``) or a device mesh (``seq_shard``) read are
-    absent; they return with the ROADMAP items that port those paths.
+    The reference's fields that only a device mesh (``production``: the
+    sharded MoE; ``seq_shard``) or training (``remat``, ``loss_chunk``)
+    read are absent; they return with the ROADMAP items that port those
+    paths.  Without a mesh the reference's MoE is ``moe_dense`` whatever
+    ``production`` says, and so is the port's.
     """
     use_kernels: bool = False     # hand-written CUDA kernels vs torch ops
     q_block: int = 512            # chunked-attention q/kv block sizes
@@ -53,20 +60,6 @@ class Runtime(NamedTuple):
 DEFAULT_RT = Runtime()
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the configurations this port cannot run yet."""
-    if cfg.moe is not None:
-        raise NotImplementedError(f"MoE ({cfg.name}) {_ITEM7}")
-    kinds = sorted(set(cfg.layer_kinds) - set(BLOCK_KINDS))
-    if kinds:
-        raise NotImplementedError(f"block kinds {kinds} ({cfg.name}) {_ITEM7}")
-    if cfg.encoder_layers or cfg.cross_attention:
-        raise NotImplementedError(
-            f"encoder/cross-attention ({cfg.name}) {_ITEM7}")
-    if cfg.mrope or cfg.vision_stub:
-        raise NotImplementedError(f"M-RoPE / vision stub ({cfg.name}) {_ITEM7}")
-
-
 def _pattern(cfg: ModelConfig) -> Tuple[str, ...]:
     if cfg.block_pattern is not None:
         return tuple(cfg.block_pattern)
@@ -75,6 +68,17 @@ def _pattern(cfg: ModelConfig) -> Tuple[str, ...]:
 
 def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
     return kind != "ssm" and (cfg.moe is not None or cfg.d_ff > 0)
+
+
+def _zero_aux(cfg: ModelConfig, device) -> MoEAux:
+    e = cfg.moe.num_experts if cfg.moe is not None else 1
+    z = lambda *shape: torch.zeros(shape, device=device)  # noqa: E731
+    return MoEAux(aux_loss=z(), load=z(e), dropped=z())
+
+
+def _add_aux(a: MoEAux, b: MoEAux) -> MoEAux:
+    return MoEAux(aux_loss=a.aux_loss + b.aux_loss,
+                  load=a.load + b.load, dropped=a.dropped + b.dropped)
 
 
 # ---------------------------------------------------------------------------
@@ -133,11 +137,12 @@ def _depth(blocks) -> int:
 
 
 # ---------------------------------------------------------------------------
-# One block: norm -> attention -> norm -> ffn, pre-norm residual
+# One block: norm -> mixer -> (cross-attn) -> norm -> ffn, pre-norm residual
 # ---------------------------------------------------------------------------
 
 def init_block(cfg: ModelConfig, kind: str, device,
-               generator: torch.Generator, lead=()) -> Dict[str, Any]:
+               generator: torch.Generator, lead=(),
+               cross: bool = False) -> Dict[str, Any]:
     """One block of ``kind``, each parameter stacked on ``lead``.
 
     Allocated directly in ``cfg.dtype`` on ``device`` (fp32 only where the
@@ -156,18 +161,32 @@ def init_block(cfg: ModelConfig, kind: str, device,
         params["mixer"] = rglru.init_rglru(cfg, device, generator, lead)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
+    if cross and kind == "attn":
+        params["cross_norm"] = layers.init_rmsnorm(cfg.d_model, dtype, device,
+                                                   lead)
+        params["cross_attn"] = attention.init_attention(
+            cfg, device, generator, cross=True, lead=lead)
     if _has_ffn(cfg, kind):
         params["norm2"] = layers.init_rmsnorm(cfg.d_model, dtype, device, lead)
-        params["ffn"] = layers.init_mlp(cfg.d_model, cfg.d_ff, cfg.activation,
-                                        dtype, device, generator, lead)
+        if cfg.moe is not None:
+            params["ffn"] = moe.init_moe(cfg, device, generator, lead)
+        else:
+            params["ffn"] = layers.init_mlp(cfg.d_model, cfg.d_ff,
+                                            cfg.activation, dtype, device,
+                                            generator, lead)
     return params
 
 
-def block_forward(params, x, positions, cfg: ModelConfig, kind: str,
-                  rt: Runtime, *, causal: bool = True,
+def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
+                  kind: str, rt: Runtime, *, causal: bool = True,
                   build_cache: bool = False,
                   cache_window: Optional[int] = None):
-    """Full-sequence block. Returns (x, cache_or_None)."""
+    """Full-sequence block. Returns (x, aux_or_None, cache_or_None).
+
+    ``aux`` is the MoE FFN's routing telemetry, ``None`` for a block
+    without one (the reference returns zeros there; ``forward_hidden``
+    starts its sum from zeros, so the total is the same).
+    """
     k = rt.use_kernels
     h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps, use_kernel=k)
     cache = None
@@ -188,10 +207,25 @@ def block_forward(params, x, positions, cfg: ModelConfig, kind: str,
             mix, st = mix
             cache = {"self": st}
     x = x + mix
+    if "cross_attn" in params and encoder_out is not None:
+        # the chunked torch path, as the reference passes no use_flash here
+        h = layers.rmsnorm(params["cross_norm"], x, cfg.norm_eps,
+                           use_kernel=k)
+        x = x + attention.full_attention(
+            params["cross_attn"], h, None, cfg, causal=False,
+            encoder_out=encoder_out, q_block=rt.q_block, kv_block=rt.kv_block)
+        if build_cache:
+            cache["cross"] = attention.build_cross_cache(
+                params["cross_attn"], encoder_out, cfg)
+    aux = None
     if "ffn" in params:
         h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps, use_kernel=k)
-        x = x + layers.mlp(params["ffn"], h, cfg.activation)
-    return x, cache
+        if cfg.moe is not None:
+            y, aux = moe.moe_forward(params["ffn"], h, cfg)
+        else:
+            y = layers.mlp(params["ffn"], h, cfg.activation)
+        x = x + y
+    return x, aux, cache
 
 
 def block_decode(params, state, x_new, pos, cfg: ModelConfig, kind: str,
@@ -199,20 +233,36 @@ def block_decode(params, state, x_new, pos, cfg: ModelConfig, kind: str,
     """One-token block step. x_new: (B,1,D). Returns (x, new_state)."""
     k = rt.use_kernels
     h = layers.rmsnorm(params["norm1"], x_new, cfg.norm_eps, use_kernel=k)
+    new_state = dict(state)
     if kind == "attn":
-        mix, new_self = attention.decode_attention(
+        mix, new_state["self"] = attention.decode_attention(
             params["mixer"], state["self"], h, pos, cfg, rope_pos=rope_pos,
             use_kernels=k)
     elif kind == "ssm":
-        mix, new_self = ssm.ssm_step(params["mixer"], state["self"], h, cfg)
+        mix, new_state["self"] = ssm.ssm_step(params["mixer"], state["self"],
+                                              h, cfg)
     else:
-        mix, new_self = rglru.rglru_step(params["mixer"], state["self"], h,
-                                         cfg)
+        mix, new_state["self"] = rglru.rglru_step(params["mixer"],
+                                                  state["self"], h, cfg)
     x = x_new + mix
+    if "cross" in state:
+        h = layers.rmsnorm(params["cross_norm"], x, cfg.norm_eps,
+                           use_kernel=k)
+        enc_len = state["cross"].k.shape[1]
+        enc_pos = torch.full((x.shape[0],), enc_len, dtype=torch.long,
+                             device=x.device)
+        out, _ = attention.decode_attention(
+            params["cross_attn"], state["cross"], h, enc_pos, cfg,
+            update=False, cross=True, use_kernels=k)
+        x = x + out
     if "ffn" in params:
         h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps, use_kernel=k)
-        x = x + layers.mlp(params["ffn"], h, cfg.activation)
-    return x, {"self": new_self}
+        if cfg.moe is not None:
+            y, _ = moe.moe_forward(params["ffn"], h, cfg)
+        else:
+            y = layers.mlp(params["ffn"], h, cfg.activation)
+        x = x + y
+    return x, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -222,7 +272,6 @@ def block_decode(params, state, x_new, pos, cfg: ModelConfig, kind: str,
 def init_model(cfg: ModelConfig, generator: torch.Generator,
                device="cuda") -> Dict[str, Any]:
     """Random parameters from ``generator`` (which must live on ``device``)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     params: Dict[str, Any] = {
@@ -232,12 +281,17 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
     }
     pattern = _pattern(cfg)
     R, rem = divmod(cfg.num_layers, len(pattern))
+    cross = cfg.cross_attention
     if R > 0:
-        params["reps"] = tuple(init_block(cfg, kind, dev, generator, (R,))
-                               for kind in pattern)
+        params["reps"] = tuple(init_block(cfg, kind, dev, generator, (R,),
+                                          cross=cross) for kind in pattern)
     if rem:
-        params["rest"] = tuple(init_block(cfg, pattern[j], dev, generator)
-                               for j in range(rem))
+        params["rest"] = tuple(init_block(cfg, pattern[j], dev, generator,
+                                          cross=cross) for j in range(rem))
+    if cfg.encoder_layers:
+        params["encoder"] = init_block(cfg, "attn", dev, generator,
+                                       (cfg.encoder_layers,))
+        params["enc_norm"] = layers.init_rmsnorm(cfg.d_model, dtype, dev)
     return params
 
 
@@ -250,34 +304,100 @@ def count_params(params) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Input embedding / positions per family
+# ---------------------------------------------------------------------------
+
+def _mrope_side(n_vision: int) -> int:
+    return max(1, int(math.ceil(math.sqrt(max(n_vision, 1)))))
+
+
+def _mrope_positions(B: int, S: int, n_vision: int,
+                     device=None) -> torch.Tensor:
+    """(B, 3, S) (temporal, h, w) M-RoPE indices: a vision-patch grid prefix
+    followed by text positions (all three components advance together)."""
+    idx = torch.arange(S, device=device)
+    side = _mrope_side(n_vision)
+    is_vis = idx < n_vision
+    text = idx - n_vision + side
+    t = torch.where(is_vis, torch.zeros_like(idx), text)
+    h = torch.where(is_vis, idx // side, text)
+    w = torch.where(is_vis, idx % side, text)
+    return torch.stack([t, h, w])[None].expand(B, 3, S)
+
+
+def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 rt: Runtime = DEFAULT_RT):
+    """-> (x (B,S,D), positions, encoder_out_or_None).
+
+    ``positions`` is (B, S), (B, 3, S) under M-RoPE, or ``None`` for
+    whisper's sinusoidal positions.
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dev = tokens.device
+    x = layers.embed(params["embed"], tokens)
+    encoder_out = None
+    if cfg.encoder_layers:
+        # whisper: the conv frontend is a stub — precomputed frame embeddings
+        enc = batch["audio_embeds"]
+        enc = enc + layers.sinusoidal_positions(
+            enc.shape[1], cfg.d_model, dev).to(enc.dtype)
+        encoder_out = encode(params, enc, cfg, rt)
+        x = x + layers.sinusoidal_positions(S, cfg.d_model, dev).to(x.dtype)
+        positions = None                      # sinusoidal, no RoPE
+    elif cfg.vision_stub and "vision_embeds" in batch:
+        vis = batch["vision_embeds"].to(x.dtype)              # (B, V, D)
+        V = vis.shape[1]
+        x = torch.cat([vis, x[:, V:]], dim=1)
+        positions = _mrope_positions(B, S, V, dev)
+    elif cfg.mrope:
+        positions = _mrope_positions(B, S, 0, dev)
+    else:
+        positions = torch.arange(S, device=dev)[None].expand(B, S)
+    return x, positions, encoder_out
+
+
+def encode(params, enc_in: torch.Tensor, cfg: ModelConfig,
+           rt: Runtime = DEFAULT_RT) -> torch.Tensor:
+    """Whisper encoder: bidirectional attention over frame embeddings.
+
+    The reference's ``lax.scan`` over the stacked ``params["encoder"]``
+    becomes a loop over its leading axis.
+    """
+    x = enc_in
+    blocks = params["encoder"]
+    for e in range(_depth(blocks)):
+        x, _, _ = block_forward(_index(blocks, e), x, None, None, cfg, "attn",
+                                rt, causal=False)
+    return layers.rmsnorm(params["enc_norm"], x, cfg.norm_eps,
+                          use_kernel=rt.use_kernels)
+
+
+# ---------------------------------------------------------------------------
 # Full-sequence forward (shared by logits / prefill)
 # ---------------------------------------------------------------------------
 
-def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """-> (x (B,S,D), positions (B,S))."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = layers.embed(params["embed"], tokens)
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    return x, positions
-
-
-def forward_hidden(params, x, positions, cfg: ModelConfig, rt: Runtime,
-                   build_cache: bool = False,
+def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
+                   rt: Runtime, build_cache: bool = False,
                    cache_window: Optional[int] = None):
-    """Runs the decoder stack. Returns (hidden, (caches_rep, caches_rest)).
+    """Runs the decoder stack. Returns (hidden, aux, (caches_rep, caches_rest)).
 
     Each cache part is ``None`` unless ``build_cache``; ``caches_rep`` has
-    one entry per pattern position, stacked on R.
+    one entry per pattern position, stacked on R.  ``aux`` sums the MoE
+    blocks' telemetry (zeros without MoE).
     """
-    check_supported(cfg)
     pattern = _pattern(cfg)
+    aux = _zero_aux(cfg, x.device)
     caches_rep, caches_rest = None, None
 
     def one(p, x, kind):
-        return block_forward(p, x, positions, cfg, kind, rt, causal=True,
-                             build_cache=build_cache,
-                             cache_window=cache_window)
+        nonlocal aux
+        x, a, c = block_forward(p, x, positions, encoder_out, cfg, kind, rt,
+                                causal=True, build_cache=build_cache,
+                                cache_window=cache_window)
+        if a is not None:
+            aux = _add_aux(aux, a)
+        return x, c
 
     if "reps" in params:
         per_kind: List[List[Any]] = [[] for _ in pattern]
@@ -296,14 +416,14 @@ def forward_hidden(params, x, positions, cfg: ModelConfig, rt: Runtime,
             caches_rest = tuple(caches)
     x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps,
                        use_kernel=rt.use_kernels)
-    return x, (caches_rep, caches_rest)
+    return x, aux, (caches_rep, caches_rest)
 
 
 def logits_fn(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT):
-    """Full (B,S,V) logits — smoke-test scale only."""
-    x, positions = embed_inputs(params, batch, cfg)
-    x, _ = forward_hidden(params, x, positions, cfg, rt)
-    return layers.unembed(params["embed"], x, cfg.tie_embeddings)
+    """Full (B,S,V) logits and the MoE aux — smoke-test scale only."""
+    x, positions, enc = embed_inputs(params, batch, cfg, rt)
+    x, aux, _ = forward_hidden(params, x, positions, enc, cfg, rt)
+    return layers.unembed(params["embed"], x, cfg.tie_embeddings), aux
 
 
 # ---------------------------------------------------------------------------
@@ -318,22 +438,29 @@ class DecodeState(NamedTuple):
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
-                      kv_quant: bool = False, device="cuda") -> DecodeState:
+                      enc_len: int = 0, kv_quant: bool = False,
+                      device="cuda") -> DecodeState:
     """Zero-initialized state sized for a seq_len-token context window.
 
     Attention caches hold ``min(seq_len, attn_window)`` slots; SSM and
-    RG-LRU states are fixed-size.
+    RG-LRU states are fixed-size; whisper's decoder blocks also hold a
+    ``"cross"`` cache of ``enc_len`` encoder positions.
     """
-    check_supported(cfg)
     dev = resolve_device(device)
     pattern = _pattern(cfg)
     R, rem = divmod(cfg.num_layers, len(pattern))
 
     def one(kind, lead):
         if kind == "attn":
-            return {"self": attention.init_cache(
+            st = {"self": attention.init_cache(
                 cfg, batch, seq_len, num_layers=lead[0] if lead else None,
                 quant=kv_quant, device=dev)}
+            if cfg.cross_attention:
+                z = torch.zeros(lead + (batch, enc_len, cfg.num_kv_heads,
+                                        cfg.resolved_head_dim),
+                                dtype=getattr(torch, cfg.dtype), device=dev)
+                st["cross"] = KVCache(k=z, v=z.clone())
+            return st
         if kind == "ssm":
             return {"self": ssm.init_ssm_state(cfg, batch, dev, lead)}
         return {"self": rglru.init_rglru_state(cfg, batch, dev, lead)}
@@ -350,18 +477,26 @@ def prefill(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT,
     """Full-sequence forward that also builds the decode state.
 
     Returns (last_logits (B, V), DecodeState).  ``window`` sets the decode
-    horizon (cache length); defaults to the prompt length.
+    horizon (cache length); defaults to the prompt length.  After a
+    qwen2-vl vision prefix of V patches, text positions run ``i - V +
+    side`` (``side = ceil(sqrt(V))``), so the state carries ``rope_offset
+    = side - V`` for decode.
     """
-    x, positions = embed_inputs(params, batch, cfg)
-    x, (caches_rep, caches_rest) = forward_hidden(
-        params, x, positions, cfg, rt, build_cache=True, cache_window=window)
+    x, positions, enc = embed_inputs(params, batch, cfg, rt)
+    x, _, (caches_rep, caches_rest) = forward_hidden(
+        params, x, positions, enc, cfg, rt, build_cache=True,
+        cache_window=window)
     logits = layers.unembed(params["embed"], x[:, -1:],
                             cfg.tie_embeddings)[:, 0]
     B, S = batch["tokens"].shape
     dev = x.device
+    offset = 0
+    if cfg.vision_stub and "vision_embeds" in batch:
+        V = batch["vision_embeds"].shape[1]
+        offset = _mrope_side(V) - V
     return logits, DecodeState(
         pos=torch.full((B,), S, dtype=torch.long, device=dev),
-        rope_offset=torch.zeros((B,), dtype=torch.long, device=dev),
+        rope_offset=torch.full((B,), offset, dtype=torch.long, device=dev),
         reps=caches_rep or (), rest=caches_rest or ())
 
 
@@ -374,11 +509,13 @@ def decode_step(params, state: DecodeState, new_tokens: torch.Tensor,
     ``attention``; the recurrent states are copied into their layer's
     rows), so ``state`` itself must not be decoded from again.
     """
-    check_supported(cfg)
     pattern = _pattern(cfg)
     pos = state.pos
     rope_pos = pos + state.rope_offset
     x = layers.embed(params["embed"], new_tokens)            # (B,1,D)
+    if cfg.encoder_layers:
+        # sinusoidal position of the new token
+        x = x + layers.sinusoidal_at(pos, cfg.d_model).to(x.dtype)[:, None]
     if state.reps:
         for r in range(_depth(params["reps"][0])):
             for i, kind in enumerate(pattern):

@@ -71,7 +71,7 @@ def test_logits_fn_matches_reference():
     toks = _tokens(jc.vocab_size)
     want, _ = JT.logits_fn(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
                            jc, jrt)
-    got = T.logits_fn(tp, {"tokens": torch.as_tensor(toks)}, tc, trt)
+    got, _ = T.logits_fn(tp, {"tokens": torch.as_tensor(toks)}, tc, trt)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=0)
 
@@ -112,7 +112,7 @@ def test_bf16_logits_within_tolerance():
     toks = _tokens(jc.vocab_size)
     want, _ = JT.logits_fn(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
                            jc, jrt)
-    got = T.logits_fn(tp, {"tokens": torch.as_tensor(toks)}, tc, trt)
+    got, _ = T.logits_fn(tp, {"tokens": torch.as_tensor(toks)}, tc, trt)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=5e-2,
                                rtol=0)
@@ -132,13 +132,6 @@ def test_init_model_shapes_match_reference_tree():
     assert all(t.dtype == torch.bfloat16 for t in jax.tree.leaves(
         tp, is_leaf=lambda x: isinstance(x, torch.Tensor)))
     assert T.count_params(tp) == tc.param_count()
-
-
-def test_unsupported_families_raise():
-    for arch in ("deepseek-moe-16b", "whisper-base", "qwen2-vl-7b"):
-        cfg = get_config(arch, reduced=True)
-        with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-            T.init_model(cfg, torch.Generator(), device="cpu")
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():

@@ -50,10 +50,14 @@ MODELS = {
     "recurrentgemma-9b": ("recurrentgemma-9b", None),
     "recurrentgemma-9b-L5": ("recurrentgemma-9b", 5),
 }
+# the other families, whose parameter trees the init-tree test also holds
+# to the reference's (their numerics: tests/test_torch_{moe,multimodal}.py)
+TREE_MODELS = {**MODELS, **{a: (a, None) for a in (
+    "deepseek-moe-16b", "arctic-480b", "qwen2-vl-7b", "whisper-base")}}
 
 
 def _cfgs(name, dtype="float32"):
-    arch, layers = MODELS[name]
+    arch, layers = TREE_MODELS[name]
     jc = jget_config(arch, reduced=True).replace(dtype=dtype)
     tc = get_config(arch, reduced=True).replace(dtype=dtype)
     if layers is not None:
@@ -204,7 +208,7 @@ def test_logits_prefill_and_greedy_decode_match_reference(name, use_kernels):
     toks = _tokens(jc.vocab_size)
     want, _ = JT.logits_fn(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
                            jc, jrt)
-    got = T.logits_fn(tp, {"tokens": torch.as_tensor(toks)}, tc, trt)
+    got, _ = T.logits_fn(tp, {"tokens": torch.as_tensor(toks)}, tc, trt)
     _close(got, want)
 
     horizon = SEQ + STEPS
@@ -239,7 +243,7 @@ def test_bf16_logits_within_tolerance(name):
     toks = _tokens(jc.vocab_size)
     want, _ = JT.logits_fn(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
                            jc, jrt)
-    got = T.logits_fn(tp, {"tokens": torch.as_tensor(toks)}, tc, trt)
+    got, _ = T.logits_fn(tp, {"tokens": torch.as_tensor(toks)}, tc, trt)
     want = np.asarray(want, np.float32)
     _close(got.float(), want, 3e-2 * float(np.abs(want).max()))
 
@@ -252,7 +256,7 @@ def test_decode_matches_full_forward(name):
     tp = T.init_model(tc, torch.Generator().manual_seed(0), device="cpu")
     rt = T.Runtime()
     toks = torch.as_tensor(_tokens(tc.vocab_size, seed=2, shape=(B, 32)))
-    full = T.logits_fn(tp, {"tokens": toks}, tc, rt)
+    full, _ = T.logits_fn(tp, {"tokens": toks}, tc, rt)
     p0 = 29
     lg, st = T.prefill(tp, {"tokens": toks[:, :p0]}, tc, rt, window=32)
     errs = [float((lg - full[:, p0 - 1]).abs().max())]
@@ -262,10 +266,12 @@ def test_decode_matches_full_forward(name):
     assert max(errs) < 1e-3, errs
 
 
-@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("name", sorted(TREE_MODELS))
 def test_init_model_tree_matches_reference(name):
     """Same paths, shapes and dtypes as the reference's tree (fp32 where
-    it keeps fp32: A_log, D, ba, lam), and count_params == param_count."""
+    it keeps fp32: A_log, D, ba, lam, the MoE router), count_params equal
+    to the reference's and to param_count, and the same decode-state
+    shapes (whisper's cross caches included)."""
     jc, tc = _cfgs(name, dtype="bfloat16")
     jp, _ = JT.init_model(jax.random.PRNGKey(0), jc)
     tp = T.init_model(tc, torch.Generator().manual_seed(0), device="cpu")
@@ -276,9 +282,10 @@ def test_init_model_tree_matches_reference(name):
     assert [x.shape for _, x in jflat] == [tuple(x.shape) for _, x in tflat]
     assert [str(x.dtype) for _, x in jflat] == [
         str(x.dtype).replace("torch.", "") for _, x in tflat]
-    assert T.count_params(tp) == tc.param_count()
-    st = T.init_decode_state(tc, 3, 40, device="cpu")
-    jst = JT.init_decode_state(jc, 3, 40)
+    assert T.count_params(tp) == tc.param_count() == JT.count_params(jp)
+    enc = 7 if tc.encoder_layers else 0
+    st = T.init_decode_state(tc, 3, 40, enc_len=enc, device="cpu")
+    jst = JT.init_decode_state(jc, 3, 40, enc_len=enc)
     assert [tuple(t.shape) for t in jax.tree.leaves(
         st, is_leaf=torch.is_tensor)] == [x.shape for x in jax.tree.leaves(jst)]
 
