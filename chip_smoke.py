@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port on one NVIDIA GPU: kernels, serving, parity.
+"""Drive the PyTorch/H100 port on one NVIDIA GPU: kernels, serving, parity,
+training.
 
     python3 chip_smoke.py            # from the repository root, one card
 
@@ -17,7 +18,10 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              the prefill KV store), each held bit-exact to its plain
              version, with the kernel's own ``device_ms``, the wrapper's
              host µs a call and, for the stores, ``unfused_ms``: the ops
-             the path ran before the store was fused.
+             the path ran before the store was fused.  The rows entry is
+             also timed at the training path's gradient rows: qwen3-14b's
+             embedding leaf, (759,680, 1,024) fp32, and short leaves of
+             one row.
 3. serve   — the main paths, each through ``ServeEngine`` in bf16 at full
              width and depth, random weights from a seeded generator:
              qwen3-14b (40 layers, 16 requests), falcon-mamba-7b (64
@@ -41,7 +45,8 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              layers) through ``prefill`` and ``decode_step``: B8, 1500
              audio frames, 64-token prompts, window 448, 64 decode steps;
              flash launches 12 times for the prefill (6 bidirectional,
-             6 causal) and the cross caches hold all 1500 frames.
+             6 causal) and the cross caches hold all 1500 frames; the
+             prefill's median and least seconds over 20 more calls.
 4. fleet   — the fleet path: ``FleetEngine`` with 4 reconfigurable groups
              of capacity 8 serving full-width qwen3-14b (40 layers) with
              an int8 KV cache, sticky routing onto a hot shard, work
@@ -81,6 +86,27 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              state; and the peak memory one full-width SSM block adds at
              B4 S2048 through the fused scan, which must stay below one
              fp32 (4, 2048, 8192, 16) tensor.
+7. train   — the training stack (``train.Trainer``: autograd through
+             ``loss_fn`` with activation checkpointing, AdamW, the int8
+             gradient compression, checkpoints), random bf16 weights from
+             a seeded generator, ``SyntheticLM(seed=0)`` data.  qwen3-14b
+             at full width and 8 of 40 layers, B4 S2048, 6 steps with
+             gradient compression: loss and grad norm finite, the quantize
+             kernel launched once per parameter leaf per step, and on one
+             step's gradients ``compress_leaf`` with the kernel equal to
+             its plain version exactly, every leaf; step seconds, tok/s,
+             model TFLOP/s (active parameters, causal attention; with
+             its reckoning) and its share of the
+             card's peak, the compression's and AdamW's seconds by CUDA
+             events, peak GB.  deepseek-moe-16b at full width and 4 of 28
+             layers, B4 S2048, 4 steps with the AMOEBA controller fed each
+             step's expert-load divergence.  whisper-base at full width and
+             depth, 10 steps straight through and again with failures
+             injected before steps 5 and 8, resuming from checkpoints
+             under ``build/``: every step's loss equal to the
+             uninterrupted run's exactly (under
+             ``torch.use_deterministic_algorithms``), and the last
+             checkpoint restoring key for key into a fresh state.
 
 The line before the last is the card's name and power limit, the one
 before that the kernels' JSON record, and the last line
@@ -92,6 +118,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -702,6 +729,13 @@ def kernel_phase(hw):
     quant_case(8 * 8, 128, "bfloat16", 1e-8, hw, flush)
     quant_case(128, 1024, "float32", 1e-12, hw, flush)
     quant_case(33, 257, "float32", 1e-12, hw, flush)
+    # the training path's gradient rows: qwen3-14b's embedding leaf as
+    # compress_leaf hands it over, 151,936 x 5,120 fp32 values in rows of
+    # 1,024, floor 1e-12; then short leaves (one row of the leaf's size)
+    grad_rows = quant_case(151936 * 5120 // 1024, 1024, "float32", 1e-12, hw,
+                           flush)
+    for D in (1, 7, 128, 1000, 1023):
+        quant_case(3, D, "float32", 1e-12, hw, flush)
     # the KV stores the int8 path runs: a batch-8 decode step into a 2304
     # ring, a window of the ring that leaves rows out of range (checked
     # only), the B4 S2048 prefill into a 2304 ring, and a prompt past the
@@ -742,7 +776,8 @@ def kernel_phase(hw):
             # the decode store makes most of the path's launches; the rows
             # entry (the TPU kernel's interface) is off the path
             "quantize_int8": dict(store, rows_entry=quant,
-                                  prefill_store=prefill)}
+                                  prefill_store=prefill,
+                                  grad_rows_entry=grad_rows)}
 
 
 # ---------------------------------------------------------------------------
@@ -1015,14 +1050,21 @@ def prefill_profile(cfg, params, rt, B, S, window):
 
 
 @contextlib.contextmanager
+def patched(module, name, fn):
+    """``module.name`` is ``fn`` while active."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+@contextlib.contextmanager
 def call_spans(module, name, spans):
     """``timed`` around every call of ``module.name`` while active."""
-    fn = getattr(module, name)
-    setattr(module, name, timed(fn, spans))
-    try:
+    with patched(module, name, timed(getattr(module, name), spans)):
         yield spans
-    finally:
-        setattr(module, name, fn)
 
 
 def greedy_decode(params, logits, st, cfg, rt, steps):
@@ -1091,6 +1133,7 @@ def vision_phase(cfg, params, rt, smi, B=2, S=1536, window=1600, steps=16):
 # are whisper's 30 s of audio, 448 its decoder context (Radford et al.
 # 2022, arXiv:2212.04356)
 WHISPER = (8, 1500, 64, 448, 64)
+WHISPER_PREFILL_REPS = 20          # timed prefill calls after the counted one
 
 
 def whisper_phase(smi):
@@ -1140,6 +1183,17 @@ def whisper_phase(smi):
     assert launches["flash_attention"] == per_prefill, launches
     assert launches["rmsnorm"] > 0 and launches["quantize_int8"] == 0, \
         launches
+    peak = torch.cuda.max_memory_allocated()
+    # one call's wall time is at the host's mercy: the median and least of
+    # more calls (after the counts were read, so not on the counted path)
+    reps = []
+    for _ in range(WHISPER_PREFILL_REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        T.prefill(params, batch, cfg, rt, window=window)
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t)
+    prefill_med = statistics.median(reps)
     rec = dict(arch=cfg.name, layers=cfg.num_layers,
                encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
                params_b=T.count_params(params) / 1e9, batch=B,
@@ -1148,10 +1202,12 @@ def whisper_phase(smi):
                prefill_s=prefill_s, decode_s=decode_s,
                prefill_tok_s=B * prompt / prefill_s,
                prefill_frames_s=B * frames / prefill_s,
+               prefill_s_median=prefill_med, prefill_s_min=min(reps),
+               prefill_tok_s_median=B * prompt / prefill_med,
                decode_tok_s=B * steps / decode_s,
                decode_ms_per_call=decode_s / steps * 1e3,
                prefill_launches=prefill_launches, launches=launches,
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9, card=smi)
+               peak_gb=peak / 1e9, card=smi)
     log("whisper", json.dumps(rec))
     del params, st, logits
     torch.cuda.empty_cache()
@@ -1722,7 +1778,332 @@ def block_peak(B=4, S=2048):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: train — the training stack at full width
+# ---------------------------------------------------------------------------
+
+# qwen3-14b at full width, its depth cut from 40 layers: all 40 need 14.77
+# B parameters x 8 bytes (bf16 params, grads, m, v) = 118 GB against the
+# card's 80; at 8 layers 4.198 B parameters hold 33.6 GB, plus 16.8 GB of
+# fp32 compression residuals
+TRAIN_QWEN_LAYERS = 8
+# deepseek-moe-16b at full width, 4 of 28 layers (2.77 B parameters, 22 GB
+# with moments; every expert runs on every token)
+TRAIN_DEEPSEEK_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+# whisper-base at full width and depth: B8, its 448-token decoder context,
+# 1500 audio frames; failures injected before steps 5 and 8
+TRAIN_WHISPER = (8, 448, 10)
+TRAIN_FAILS = (5, 8)
+
+
+def train_flops(cfg, params, B, S):
+    """(model FLOPs of one training step, FLOPs executed, the reckoning).
+
+    Model: 6·N·T for the N active parameters that multiply (all but the
+    embedding table, a lookup; the router and the unembedding included; of
+    a routed expert bank only top_k/E, the experts a token is sent to)
+    plus causal attention's scores and P·V over the half of S² a token
+    attends, 2·B·S²·H·hd a layer forward, 3x with the backward.  Executed
+    counts what runs: every expert on every token (``moe_dense``), the full
+    S² the chunked attention computes (4·B·S²·H·hd a layer forward), and
+    what activation checkpointing recomputes: each block's forward (2·N·T
+    of all the blocks' parameters and attention's forward once more) and
+    each loss chunk's unembedding (2·N·T of it)."""
+    from repro_torch import pytree
+    T_ = B * S
+    blocks = [params[k] for k in ("reps", "rest") if k in params]
+    n_blocks = n_routed = 0
+    for key, leaf in pytree.flatten_with_paths(blocks).items():
+        n_blocks += leaf.numel()
+        if "/experts/" in key:
+            n_routed += leaf.numel()
+    share = cfg.moe.top_k / cfg.moe.num_experts if cfg.moe else 1.0
+    n_active = n_blocks - n_routed + share * n_routed
+    emb = params["embed"]
+    n_out = (emb["out"] if "out" in emb else emb["table"]).numel()
+    n_mm = n_active + n_out
+    attn_full = 4.0 * B * S * S * cfg.num_heads * cfg.resolved_head_dim * \
+        sum(k == "attn" for k in cfg.layer_kinds)
+    model = 6.0 * n_mm * T_ + 3.0 * attn_full / 2
+    executed = (6.0 * (n_blocks + n_out) * T_ + 3.0 * attn_full
+                + 2.0 * n_blocks * T_ + attn_full + 2.0 * n_out * T_)
+    how = (f"6·N·T = 6 x {n_mm:,.0f} x {T_:,} = {6.0 * n_mm * T_ / 1e12:.2f} "
+           f"TFLOP (N: active block parameters {n_active:,.0f}"
+           + (f", of which routed experts {share * n_routed:,.0f} = top_k/E "
+              f"of {n_routed:,}" if n_routed else "")
+           + f", + unembedding {n_out:,}; the embedding table is a lookup) "
+           f"+ causal attention 3 x 2·B·S²·H·hd·L = {1.5 * attn_full / 1e12:.2f}"
+           f" TFLOP; executed: all {n_blocks:,} block parameters, the full "
+           f"S² attention, the recomputed blocks 2·N_blocks·T + attention "
+           f"forward and the loss chunks' unembedding 2·N_out·T = "
+           f"{executed / 1e12:.2f} TFLOP")
+    return model, executed, how
+
+
+def check_compress_exact(tr, params):
+    """One step's gradients through ``compress_leaf`` with the kernel and
+    with its plain version on the card: codes and scales equal exactly,
+    every leaf.  -> (leaves, distinct (rows, D) shapes)."""
+    import torch
+    from repro_torch import pytree
+    from repro_torch.kernels import quantize as QZ
+    from repro_torch.parallel import compression as C
+    batch = tr.place_batch(tr.data.batch_at(0))
+    _, _, grads = tr.loss_and_grads(params, batch)
+    shapes, bad = set(), {}
+    for key, g in pytree.flatten_with_paths(grads).items():
+        q, s, _ = C.compress_leaf(g)
+        with patched(C, "_quant",
+                     lambda x: QZ.quantize_int8_plain(x, C.FLOOR)):
+            wq, ws, _ = C.compress_leaf(g)
+        shapes.add(tuple(q.shape))
+        if not (torch.equal(q, wq) and torch.equal(s, ws)):
+            bad[key] = (int((q != wq).sum()), int((s != ws).sum()))
+        del q, s, wq, ws
+    assert not bad, f"compress_leaf: kernel differs from plain: {bad}"
+    return len(pytree.leaves(grads)), sorted(shapes)
+
+
+def train_qwen_phase(smi, hw):
+    """qwen3-14b at full width (8 of 40 layers), B4 S2048, 6 steps with
+    gradient compression: the quantize kernel's rows entry launches once
+    per parameter leaf per step, and equals its plain version exactly on
+    one step's gradients."""
+    import torch
+    from repro_torch import pytree
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as A
+    from repro_torch.parallel import compression as C
+    from repro_torch.train import Trainer
+
+    full = get_config("qwen3-14b")                 # full width, bf16
+    cfg = full.replace(num_layers=TRAIN_QWEN_LAYERS)
+    B, S, steps = TRAIN_BATCH, TRAIN_SEQ, 6
+    tcfg = TrainConfig(learning_rate=1e-4, warmup_steps=1, total_steps=steps,
+                       remat="full", grad_compression=True)
+    tr = Trainer(cfg, ShapeConfig("train", S, B, "train"), tcfg,
+                 device="cuda")
+    assert tr.rt.remat and tr.rt.loss_chunk == 512 and not tr.rt.use_kernels
+    t0 = time.perf_counter()
+    state = tr.init_state(SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_leaves = len(pytree.leaves(state.params))
+    n_params = T.count_params(state.params)
+    model_flops, executed_flops, how = train_flops(cfg, state.params, B, S)
+    resident = torch.cuda.memory_allocated()
+    spans = {"compress": [], "adamw": []}
+    torch.cuda.reset_peak_memory_stats()
+    with call_spans(C, "round_trip_", spans["compress"]), \
+            call_spans(A, "adamw_update", spans["adamw"]):
+        ops.reset_launches()                       # zero just before the run
+        out = tr.train(steps, state=state)
+        launches = dict(ops.launches)              # read just after
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    assert [m.step for m in hist] == list(range(steps)), hist
+    for m in hist:
+        assert math.isfinite(m.loss) and math.isfinite(m.grad_norm), m
+    assert launches["quantize_int8"] == n_leaves * steps, (launches, n_leaves)
+    assert sum(launches.values()) == launches["quantize_int8"], launches
+    per = [spans["compress"][i * n_leaves:(i + 1) * n_leaves]
+           for i in range(steps)]
+    compress_s = [sum(s.elapsed_time(e) for s, e in p) / 1e3 for p in per]
+    adamw_s = [s.elapsed_time(e) / 1e3 for s, e in spans["adamw"]]
+    params = out["state"].params
+    state = out = None                             # drop moments, residuals
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaves, shapes = check_compress_exact(tr, params)
+    step_s = statistics.median(m.dt for m in hist[2:])
+    rec = dict(
+        arch=cfg.name, layers=cfg.num_layers, of_layers=full.num_layers,
+        reduced=f"depth {full.num_layers} -> {cfg.num_layers} layers: "
+        f"{full.num_layers} need {full.param_count() * 8 / 1e9:.0f} GB of "
+        f"bf16 params, grads and moments",
+        d_model=cfg.d_model, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        params=n_params, batch=B, seq=S, tokens_per_step=B * S, steps=steps,
+        loss=[m.loss for m in hist], grad_norm=[m.grad_norm for m in hist],
+        lr=[m.lr for m in hist], step_s=[m.dt for m in hist],
+        step_s_median_3_6=step_s, tok_s=B * S / step_s,
+        model_tflop=model_flops / 1e12, executed_tflop=executed_flops / 1e12,
+        reckoning=how, model_tflop_s=model_flops / step_s / 1e12,
+        peak_share=model_flops / step_s / hw.peak_flops,
+        compress_s=compress_s,
+        compress_s_median_3_6=statistics.median(compress_s[2:]),
+        adamw_s=adamw_s, adamw_s_median_3_6=statistics.median(adamw_s[2:]),
+        param_leaves=n_leaves, quantize_launches=launches["quantize_int8"],
+        compress_exact_leaves=leaves, compress_row_shapes=shapes,
+        init_s=init_s, resident_gb=resident / 1e9, peak_gb=peak / 1e9,
+        card=smi)
+    log("train:qwen3-14b", json.dumps(rec))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_deepseek_phase(smi, hw):
+    """deepseek-moe-16b at full width (4 of 28 layers), B4 S2048, 4 steps
+    with the AMOEBA controller fed each step's expert-load divergence
+    (tests/test_runtime.py::test_moe_divergence_telemetry at full width)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (AmoebaConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.core.controller import AmoebaController
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.train import Trainer
+
+    full = get_config("deepseek-moe-16b")
+    cfg = full.replace(num_layers=TRAIN_DEEPSEEK_LAYERS)
+    B, S, steps = TRAIN_BATCH, TRAIN_SEQ, 4
+    ctl = AmoebaController(AmoebaConfig(min_phase_steps=1))
+    tr = Trainer(cfg, ShapeConfig("train", S, B, "train"),
+                 TrainConfig(total_steps=steps, warmup_steps=1),
+                 controller=ctl, device="cuda")
+    state = tr.init_state(SEED)
+    n_params = T.count_params(state.params)
+    model_flops, executed_flops, how = train_flops(cfg, state.params, B, S)
+    loads = []
+    step = tr.step
+
+    def recording(st, batch):
+        st, out = step(st, batch)
+        loads.append(out["expert_load"])
+        return st, out
+
+    tr.step = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                           # zero just before the run
+    out = tr.train(steps, state=state)
+    launches = dict(ops.launches)                  # read just after
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    assert [m.step for m in hist] == list(range(steps)), hist
+    assert all(math.isfinite(m.loss) for m in hist), hist
+    assert all(m.divergence > 0 for m in hist), hist
+    assert len(ctl.split_state.history) == steps, ctl.split_state
+    sums = [float(x.sum()) for x in loads]
+    assert all(bool(torch.isfinite(x).all()) for x in loads)
+    # each MoE layer's load fractions sum to 1; expert_load is their mean
+    assert all(abs(v - 1.0) < 1e-5 for v in sums), sums
+    step_s = statistics.median(m.dt for m in hist[1:])
+    rec = dict(
+        arch=cfg.name, layers=cfg.num_layers, of_layers=full.num_layers,
+        experts=cfg.moe.num_experts, top_k=cfg.moe.top_k, params=n_params,
+        batch=B, seq=S, steps=steps, loss=[m.loss for m in hist],
+        divergence=[m.divergence for m in hist],
+        split=[h[1] for h in ctl.split_state.history],
+        expert_load_sums=sums, step_s=[m.dt for m in hist],
+        step_s_median_2_4=step_s, tok_s=B * S / step_s,
+        model_tflop=model_flops / 1e12, executed_tflop=executed_flops / 1e12,
+        reckoning=how, model_tflop_s=model_flops / step_s / 1e12,
+        peak_share=model_flops / step_s / hw.peak_flops,
+        peak_gb=peak / 1e9, card=smi)
+    log("train:deepseek-moe-16b", json.dumps(rec))
+    del state, out, loads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_whisper_phase(smi):
+    """whisper-base at full width and depth, 10 steps, once straight
+    through and once with failures injected before steps 5 and 8, resuming
+    from ``build/ckpt_train`` (every 4 steps, 2 kept): every step's loss
+    must equal the uninterrupted run's exactly
+    (tests/test_runtime.py::test_failure_resume_is_exact on the card), and
+    the last checkpoint restore key for key into a fresh ``TrainState``.
+    Runs under ``torch.use_deterministic_algorithms``: the embedding's
+    backward accumulates with ``index_put_``, whose default CUDA form adds
+    in whatever order the atomics land."""
+    import shutil
+    import torch
+    from repro_torch import pytree
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.train import Trainer
+
+    cfg = get_config("whisper-base")               # full width and depth
+    B, S, steps = TRAIN_WHISPER
+    tcfg = TrainConfig(total_steps=steps, warmup_steps=2, learning_rate=1e-3,
+                       checkpoint_every=4)
+
+    def trainer():
+        return Trainer(cfg, ShapeConfig("train", S, B, "train"), tcfg,
+                       device="cuda")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        base = trainer().train(steps)["history"]
+        losses = [m.loss for m in base]
+        d = ROOT / "build" / "ckpt_train"
+        shutil.rmtree(d, ignore_errors=True)
+        ck = CheckpointManager(str(d), keep=2)
+        fails = set(TRAIN_FAILS)
+
+        def inject(k):
+            if k in fails:
+                fails.discard(k)
+                return True
+            return False
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()                       # zero just before the run
+        t0 = time.perf_counter()
+        out = trainer().train(steps, ckpt=ck, failure_injector=inject)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)              # read just after
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    hist = out["history"]
+    assert out["resumes"] == 2, out["resumes"]
+    assert [m.step for m in hist] == [0, 1, 2, 3, 4, 4, 5, 6, 7, 8, 9], hist
+    diff = max(abs(m.loss - losses[m.step]) for m in hist)
+    assert diff == 0.0, [(m.step, m.loss, losses[m.step]) for m in hist]
+    assert all(math.isfinite(x) for x in losses), losses
+    fresh = trainer().init_state(SEED + 1)
+    step, got, extra = ck.restore(like=fresh, device="cuda")
+    want = pytree.flatten_with_paths(out["state"])
+    got = pytree.flatten_with_paths(got)
+    assert step == steps and extra == {"k": steps}, (step, extra)
+    assert set(got) == set(want) == set(pytree.flatten_with_paths(fresh))
+    differ = [k for k in want if not (got[k].dtype == want[k].dtype
+                                      and torch.equal(got[k], want[k]))]
+    assert not differ, differ
+    step_s = statistics.median(m.dt for m in base[2:])
+    rec = dict(arch=cfg.name, layers=cfg.num_layers,
+               encoder_layers=cfg.encoder_layers, batch=B, seq=S,
+               audio_frames=DataConfig().enc_frames, steps=steps, loss=losses,
+               resumed_steps=[m.step for m in hist], resumes=out["resumes"],
+               max_loss_diff=diff, restored_keys=len(got),
+               step_s=[m.dt for m in base], step_s_median_3_10=step_s,
+               tok_s=B * S / step_s, resumed_run_wall_s=wall,
+               peak_gb=peak / 1e9, card=smi)
+    log("train:whisper-base", json.dumps(rec))
+    del out, got, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+
 def main() -> int:
+    # cuBLAS's deterministic workspace, read when CUDA starts: the whisper
+    # train phase runs under torch.use_deterministic_algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1769,6 +2150,12 @@ def main() -> int:
         block_parity(kind)
     block_peak()
     log(f"parity: {time.perf_counter() - t:.1f} s")
+    released(0)
+    t = time.perf_counter()
+    by_phase["train:qwen3-14b"] = train_qwen_phase(smi, H100)
+    by_phase["train:deepseek-moe-16b"] = train_deepseek_phase(smi, H100)
+    by_phase["train:whisper-base"] = train_whisper_phase(smi)
+    log(f"train: {time.perf_counter() - t:.1f} s")
 
     kernels = []
     for name, src, tpu in [
@@ -1792,7 +2179,8 @@ def main() -> int:
             shape=rec["shape"],
             launches_by_path={a: v[name] for a, v in by_phase.items()},
             **{k: rec[k] for k in ("device_ms", "unfused_ms", "abc_entry",
-                                   "rows_entry", "prefill_store")
+                                   "rows_entry", "prefill_store",
+                                   "grad_rows_entry")
                if k in rec}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,8 +3,11 @@
 The tests build one parameter tree with ``repro.models.transformer``,
 convert its leaves to numpy (``jax.tree.map(np.asarray, params)``), and
 hand the result to :func:`params_from_numpy`, so both packages compute
-with bit-identical weights.  The tree's structure (dicts, and the tuple
-under ``"reps"``) is kept as it is.
+with bit-identical weights.  The tree's structure (dicts, the tuple under
+``"reps"``, NamedTuples) is kept as it is.  :func:`train_state_from_numpy`
+maps a whole reference ``TrainState`` (parameters, AdamW moments and step,
+data cursor, compression residuals) onto the port's, so both trainers
+start from the same state.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import pytree, resolve_device
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -28,12 +31,18 @@ def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def params_from_numpy(tree: Any, device="cuda") -> Any:
     """Dicts, tuples and lists are kept; every array leaf becomes a tensor."""
     dev = resolve_device(device)
+    return pytree.map_(lambda a: _tensor(np.asarray(a), dev), tree)
 
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        if isinstance(node, (tuple, list)):
-            return type(node)(conv(v) for v in node)
-        return _tensor(np.asarray(node), dev)
 
-    return conv(tree)
+def train_state_from_numpy(ref_state: Any, device="cuda"):
+    """The reference's ``TrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) -> the port's ``TrainState``."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.trainer import TrainState
+    t = lambda tree: params_from_numpy(tree, device)  # noqa: E731
+    opt = ref_state.opt
+    return TrainState(params=t(ref_state.params),
+                      opt=AdamWState(step=t(opt.step), m=t(opt.m),
+                                     v=t(opt.v)),
+                      data_step=t(ref_state.data_step),
+                      residuals=t(ref_state.residuals))

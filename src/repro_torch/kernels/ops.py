@@ -8,6 +8,10 @@ kernel's plain version instead, which is how the CPU tests reach it.
 ``launches`` counts kernel launches only (a plain int per kernel, bumped
 next to the launch), so a run can show that its main path went through
 the kernels; ``reset_launches`` zeroes it.
+
+The kernels have no backward.  A CUDA launch on a tensor that autograd
+records raises instead of handing back a result whose gradient would be
+lost; the plain versions on the CPU are torch ops and differentiate.
 """
 from __future__ import annotations
 
@@ -30,6 +34,14 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def _forward_only(name: str, *ts: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel is forward-only and autograd records "
+            f"its inputs; run it under torch.no_grad(), or train with "
+            f"Runtime(use_kernels=False) as the reference does")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
@@ -38,6 +50,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     khm = k.transpose(1, 2).contiguous()
     vhm = v.transpose(1, 2).contiguous()
     if q.is_cuda:
+        _forward_only("flash_attention", q, k, v)
         out = _fa.flash_attention_hm_cuda(qhm, khm, vhm, causal=causal,
                                           window=window)
         launches["flash_attention"] += 1
@@ -53,6 +66,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     shape = x.shape
     rows = x.reshape(-1, shape[-1])
     if x.is_cuda:
+        _forward_only("rmsnorm", x, scale)
         out = _rn.rmsnorm_cuda(rows.contiguous(), scale.contiguous(), eps)
         launches["rmsnorm"] += 1
     else:
@@ -63,6 +77,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b: (B, S, W) fp32 -> h (B, S, W) fp32."""
     if a.is_cuda:
+        _forward_only("rglru_scan", a, b)
         out = _ls.rglru_scan_cuda(a.contiguous(), b.contiguous())
         launches["rglru_scan"] += 1
         return out
@@ -78,6 +93,7 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
     ``(B, S, N, D)`` for the TPU's lane axis).
     """
     if a.is_cuda:
+        _forward_only("ssm_scan", a, b, c)
         out = _ls.ssm_scan_cuda(a.contiguous(), b.contiguous(),
                                 c.contiguous())
         launches["ssm_scan"] += 1
@@ -98,6 +114,7 @@ def selective_scan(dt: torch.Tensor, x: torch.Tensor, A: torch.Tensor,
     launcher copies them, (B, S, N), into contiguous fp32.
     """
     if dt.is_cuda:
+        _forward_only("selective_scan", dt, x, A, Bm, Cm)
         out = _ls.selective_scan_cuda(dt.contiguous(), x.contiguous(),
                                       A.contiguous(), Bm, Cm)
         launches["ssm_scan"] += 1
@@ -109,6 +126,7 @@ def quantize_int8(x: torch.Tensor, floor: float = 1e-12
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, D) -> (q int8 (T, D), scale f32 (T, 1))."""
     if x.is_cuda:
+        _forward_only("quantize_int8", x)
         out = _qz.quantize_int8_cuda(x.contiguous(), floor)
         launches["quantize_int8"] += 1
         return out
@@ -130,6 +148,7 @@ def quantize_kv_store_(new_k: torch.Tensor, new_v: torch.Tensor,
     written where they are (a non-contiguous one raises).
     """
     if new_k.is_cuda:
+        _forward_only("quantize_kv_store_", new_k, new_v)
         _qz.quantize_kv_store_cuda_(new_k.contiguous(), new_v.contiguous(),
                                     k, v, k_scale, v_scale, pos.contiguous(),
                                     W, offset, floor)
@@ -145,6 +164,7 @@ def quantize_kv_prefill(k: torch.Tensor, v: torch.Tensor, W: int,
     (B, W, KV, hd), k_scale, v_scale f32 (B, W, KV, 1)) in the ring
     layout (slot = p mod W); one launch on the card."""
     if k.is_cuda:
+        _forward_only("quantize_kv_prefill", k, v)
         out = _qz.quantize_kv_prefill_cuda(k.contiguous(), v.contiguous(), W,
                                            floor)
         launches["quantize_int8"] += 1

@@ -11,7 +11,8 @@ pattern position whose leaves are stacked on a leading R axis, and
 ``bridge.params_from_numpy`` maps the reference's tree one to one.  The
 reference's ``lax.scan`` over ``reps`` becomes a Python loop over R.
 
-Two entry points per program phase, as in the reference: :func:`prefill`
+One entry point per program phase, as in the reference: :func:`loss_fn`
+(full-sequence teacher-forced LM loss, the training step's), :func:`prefill`
 (full-sequence forward that builds the decode state) and
 :func:`decode_step` (one new token against the cached state); plus
 :func:`logits_fn` for smoke-scale full logits.  ``forward_hidden`` and
@@ -21,8 +22,17 @@ model without MoE) beside their result, as the reference's do.
 Whisper's encoder (:func:`encode`) runs under the caller's ``Runtime``, so
 its bidirectional attention takes the flash kernel with ``use_kernels``;
 the reference's ``embed_inputs`` runs it under its default runtime.  The
-function is the same either way.  Training (``loss_fn``, activation
-checkpointing) is ROADMAP queue 1, item 4.
+function is the same either way.
+
+Activation checkpointing (``torch.utils.checkpoint``, non-reentrant) sits
+where the reference has ``jax.checkpoint``: each decoder block under
+``Runtime.remat`` (not while building a decode cache), each encoder block
+under ``Runtime.remat``, and each chunk of the LM loss always.  It applies
+only while autograd records and some input of the checkpointed call
+requires a gradient, so serving computes exactly what it computes without
+it, at the same cost.  The LM loss streams over
+sequence chunks of ``Runtime.loss_chunk`` positions, so the fp32 (B, S, V)
+logits are never materialized.
 """
 from __future__ import annotations
 
@@ -30,8 +40,10 @@ import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import pytree, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, moe, rglru, ssm
 from repro_torch.models.attention import KVCache
@@ -45,15 +57,18 @@ from repro_torch.models.moe import MoEAux
 class Runtime(NamedTuple):
     """Execution knobs threaded through the stack.
 
-    The reference's fields that only a device mesh (``production``: the
-    sharded MoE; ``seq_shard``) or training (``remat``, ``loss_chunk``)
-    read are absent; they return with the ROADMAP items that port those
-    paths.  Without a mesh the reference's MoE is ``moe_dense`` whatever
-    ``production`` says, and so is the port's.
+    The reference's fields that only a device mesh reads (``production``:
+    the sharded MoE; ``seq_shard``) are absent; they return with the
+    ROADMAP item that ports those paths.  Without a mesh the reference's
+    MoE is ``moe_dense`` whatever ``production`` says, and so is the
+    port's.  The kernels have no backward: a training step keeps
+    ``use_kernels`` off, as the reference's ``Trainer`` does.
     """
     use_kernels: bool = False     # hand-written CUDA kernels vs torch ops
+    remat: bool = True            # per-block activation checkpointing
     q_block: int = 512            # chunked-attention q/kv block sizes
     kv_block: int = 1024
+    loss_chunk: int = 512         # LM-loss sequence chunk
     kv_quant: bool = False        # int8 KV cache + per-vector scales
 
 
@@ -134,6 +149,30 @@ def _write_(dst, src) -> None:
 def _depth(blocks) -> int:
     """R, the leading axis of a stacked block's parameters."""
     return blocks["norm1"]["scale"].shape[0]
+
+
+def _unstack(tree) -> List[Any]:
+    """The R layers of a block's stacked parameter dict, each leaf
+    ``torch.unbind``'s view: one unbind per leaf, whose backward stacks the
+    layers' gradients once (indexing layer by layer would add a
+    zero-filled R-layer gradient per layer)."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v) for k, v in tree.items()}
+        R = len(next(iter(per.values())))
+        return [{k: v[r] for k, v in per.items()} for r in range(R)]
+    return list(torch.unbind(tree))
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward while
+    autograd records a tensor of ``args`` (the reference's
+    ``jax.checkpoint``); a plain call otherwise, as in serving, whose
+    parameters need no gradient."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in pytree.leaves(args)):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -364,17 +403,19 @@ def encode(params, enc_in: torch.Tensor, cfg: ModelConfig,
     The reference's ``lax.scan`` over the stacked ``params["encoder"]``
     becomes a loop over its leading axis.
     """
+    def one(p, x):
+        return block_forward(p, x, None, None, cfg, "attn", rt,
+                             causal=False)[0]
+
     x = enc_in
-    blocks = params["encoder"]
-    for e in range(_depth(blocks)):
-        x, _, _ = block_forward(_index(blocks, e), x, None, None, cfg, "attn",
-                                rt, causal=False)
+    for p in _unstack(params["encoder"]):
+        x = _remat(one, p, x) if rt.remat else one(p, x)
     return layers.rmsnorm(params["enc_norm"], x, cfg.norm_eps,
                           use_kernel=rt.use_kernels)
 
 
 # ---------------------------------------------------------------------------
-# Full-sequence forward (shared by logits / prefill)
+# Full-sequence forward (shared by loss / logits / prefill)
 # ---------------------------------------------------------------------------
 
 def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
@@ -384,26 +425,33 @@ def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
 
     Each cache part is ``None`` unless ``build_cache``; ``caches_rep`` has
     one entry per pattern position, stacked on R.  ``aux`` sums the MoE
-    blocks' telemetry (zeros without MoE).
+    blocks' telemetry (zeros without MoE).  Each block is checkpointed
+    under ``rt.remat`` unless it builds a cache.
     """
     pattern = _pattern(cfg)
     aux = _zero_aux(cfg, x.device)
     caches_rep, caches_rest = None, None
+    remat = rt.remat and not build_cache
 
     def one(p, x, kind):
         nonlocal aux
-        x, a, c = block_forward(p, x, positions, encoder_out, cfg, kind, rt,
-                                causal=True, build_cache=build_cache,
-                                cache_window=cache_window)
+
+        def run(p, x):
+            return block_forward(p, x, positions, encoder_out, cfg, kind, rt,
+                                 causal=True, build_cache=build_cache,
+                                 cache_window=cache_window)
+
+        x, a, c = _remat(run, p, x) if remat else run(p, x)
         if a is not None:
             aux = _add_aux(aux, a)
         return x, c
 
     if "reps" in params:
         per_kind: List[List[Any]] = [[] for _ in pattern]
-        for r in range(_depth(params["reps"][0])):
+        stacks = [_unstack(blocks) for blocks in params["reps"]]
+        for r in range(len(stacks[0])):
             for i, kind in enumerate(pattern):
-                x, c = one(_index(params["reps"][i], r), x, kind)
+                x, c = one(stacks[i][r], x, kind)
                 per_kind[i].append(c)
         if build_cache:
             caches_rep = tuple(_stack(cs) for cs in per_kind)
@@ -424,6 +472,63 @@ def logits_fn(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT):
     x, positions, enc = embed_inputs(params, batch, cfg, rt)
     x, aux, _ = forward_hidden(params, x, positions, enc, cfg, rt)
     return layers.unembed(params["embed"], x, cfg.tie_embeddings), aux
+
+
+# ---------------------------------------------------------------------------
+# Training loss (chunked over the sequence)
+# ---------------------------------------------------------------------------
+
+def _chunk_nll(embed, xc, tc, vc, tie: bool) -> torch.Tensor:
+    """Summed NLL of one chunk: xc (B, c, D), tc (B, c), vc (c,) validity."""
+    lg = layers.unembed(embed, xc, tie).float()
+    logz = torch.logsumexp(lg, dim=-1)                          # (B, c)
+    picked = torch.gather(lg, -1, tc[..., None])[..., 0]
+    return torch.sum((logz - picked) * vc[None, :])
+
+
+def _chunked_lm_loss(params, x, tokens, cfg: ModelConfig, chunk: int):
+    """Mean NLL of tokens[:,1:] given hidden x[:,:-1]; O(chunk·V) memory.
+
+    The reference's ``lax.scan`` over zero-padded chunks, summed in the
+    same order; each chunk is checkpointed, so its fp32 logits live only
+    while that chunk's loss or gradient is computed.
+    """
+    B, S, D = x.shape
+    n = S - 1
+    xs, tg = x[:, :-1], tokens[:, 1:].long()
+    c = min(chunk, n)
+    nc = -(-n // c)
+    pad = nc * c - n
+    if pad:
+        xs = F.pad(xs, (0, 0, 0, pad))
+        tg = F.pad(tg, (0, pad))
+    valid = (torch.arange(nc * c, device=x.device) < n).float()
+    total = torch.zeros((), device=x.device)
+    for i in range(nc):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + _remat(_chunk_nll, params["embed"], xs[:, sl],
+                               tg[:, sl], valid[sl], cfg.tie_embeddings)
+    return total / (B * n)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT):
+    """-> (loss, metrics). metrics carries the AMOEBA divergence signals:
+    for an MoE model the load-balance loss (``moe_aux``), the mean expert
+    load (``expert_load``, (E,)) and the dropped fraction, each averaged
+    over the MoE layers."""
+    x, positions, enc = embed_inputs(params, batch, cfg, rt)
+    x, aux, _ = forward_hidden(params, x, positions, enc, cfg, rt)
+    lm = _chunked_lm_loss(params, x, batch["tokens"], cfg, rt.loss_chunk)
+    loss = lm
+    n_moe = sum(1 for k in cfg.layer_kinds if k != "ssm") or 1
+    metrics = {"lm_loss": lm}
+    if cfg.moe is not None:
+        aux_mean = aux.aux_loss / n_moe
+        loss = loss + cfg.moe.router_aux_loss * aux_mean
+        metrics.update(moe_aux=aux_mean, expert_load=aux.load / n_moe,
+                       dropped_frac=aux.dropped / n_moe)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

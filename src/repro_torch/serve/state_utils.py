@@ -16,28 +16,8 @@ from typing import Callable, List, Sequence
 
 import torch
 
+from repro_torch import pytree
 from repro_torch.models.transformer import DecodeState
-
-
-def _tree_map(f: Callable, *trees):
-    """``f`` over the tensor leaves of same-shaped trees; ``None`` stays.
-
-    A NamedTuple state (``KVCache``, ``SSMState``, ``RGLRUState``) is
-    rebuilt from its fields positionally, a plain tuple or list from an
-    iterable.
-    """
-    first = trees[0]
-    if first is None:
-        return None
-    if isinstance(first, dict):
-        return {k: _tree_map(f, *[t[k] for t in trees]) for k in first}
-    if isinstance(first, (tuple, list)):
-        items = [_tree_map(f, *[t[i] for t in trees])
-                 for i in range(len(first))]
-        if hasattr(first, "_fields"):
-            return type(first)(*items)
-        return type(first)(items)
-    return f(*trees)
 
 
 def rows(x: torch.Tensor, idx: Sequence[int], axis: int = 0) -> torch.Tensor:
@@ -52,8 +32,8 @@ def _map_batch(state: DecodeState, f0: Callable, f1: Callable) -> DecodeState:
     return DecodeState(
         pos=f0(state.pos),
         rope_offset=f0(state.rope_offset),
-        reps=_tree_map(f1, state.reps),
-        rest=_tree_map(f0, state.rest),
+        reps=pytree.map_(f1, state.reps),
+        rest=pytree.map_(f0, state.rest),
     )
 
 
@@ -68,9 +48,9 @@ def concat(states: List[DecodeState]) -> DecodeState:
     return DecodeState(
         pos=torch.cat([s.pos for s in states], dim=0),
         rope_offset=torch.cat([s.rope_offset for s in states], dim=0),
-        reps=_tree_map(lambda *xs: torch.cat(xs, dim=1),
+        reps=pytree.map_(lambda *xs: torch.cat(xs, dim=1),
                        *[s.reps for s in states]),
-        rest=_tree_map(lambda *xs: torch.cat(xs, dim=0),
+        rest=pytree.map_(lambda *xs: torch.cat(xs, dim=0),
                        *[s.rest for s in states]),
     )
 

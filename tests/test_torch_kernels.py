@@ -617,3 +617,59 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         QZ.quantize_int8_cuda(torch.zeros(8, 4, device=cuda).t())
     with pytest.raises(ValueError, match=r"\(T, D\)"):
         QZ.quantize_int8_cuda(torch.zeros(2, 4, 8, device=cuda))
+
+
+# gradient compression's leaves (rows of 1,024 fp32 values, one row of the
+# leaf's size below that): short leaves, an exact multiple of 1,024, a
+# zero-padded tail, a tail row whose real values are all zero (amax 0:
+# the floor sets its scale), a bf16 leaf, and qwen3-14b's 151,936 x 5,120
+# embedding (759,680 rows)
+COMPRESS_LEAVES = [((1,), "float32", False), ((7,), "float32", False),
+                   ((128,), "float32", False), ((1000,), "float32", False),
+                   ((1023,), "float32", False), ((8, 128), "float32", False),
+                   ((5000,), "float32", False), ((3, 1025), "float32", True),
+                   ((4, 2048), "bfloat16", False),
+                   ((151936, 5120), "float32", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,zero_tail", COMPRESS_LEAVES)
+def test_compress_leaf_cuda_matches_plain_exactly(cuda, monkeypatch, shape,
+                                                  dtype, zero_tail):
+    from repro_torch.parallel import compression as C
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = 3.0 * torch.randn(shape, device=cuda, generator=g)
+    if zero_tail:
+        x.view(-1)[-(x.numel() % 1024):] = 0.0
+    x = x.to(getattr(torch, dtype))
+    ops.reset_launches()
+    q, s, shp = C.compress_leaf(x)
+    torch.cuda.synchronize()
+    assert ops.launches["quantize_int8"] == 1 and shp == tuple(shape)
+    row = min(x.numel(), 1024)
+    assert q.shape == (-(-x.numel() // row), row)
+    monkeypatch.setattr(C, "_quant",
+                        lambda r: QZ.quantize_int8_plain(r, C.FLOOR))
+    wq, ws, _ = C.compress_leaf(x)
+    assert torch.equal(q, wq) and torch.equal(s, ws)
+    if zero_tail:
+        assert float(s[-1]) == np.float32(1e-12) / np.float32(127.0)
+        assert not q[-1].any()
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_autograd(cuda):
+    """The kernels have no backward: a launch on a tensor autograd records
+    raises; under no_grad it runs."""
+    x = torch.randn(4, 128, device=cuda, requires_grad=True)
+    scale = torch.ones(128, device=cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.rmsnorm(x, scale)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.quantize_int8(x)
+    q = torch.randn(1, 64, 4, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.flash_attention(q, q, q)
+    with torch.no_grad():
+        ops.rmsnorm(x, scale)
+        ops.quantize_int8(x)
