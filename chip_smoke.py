@@ -107,6 +107,36 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              uninterrupted run's exactly (under
              ``torch.use_deterministic_algorithms``), and the last
              checkpoint restoring key for key into a fresh state.
+8. dist    — the sharded paths (``repro_torch.parallel``): 4 ranks on the
+             one card, started with ``torch.multiprocessing`` in the spawn
+             mode, joined by gloo (NCCL refuses two ranks on one device;
+             every collective crosses host memory), mesh (data 2, model 2).
+             Each leg's unsharded path runs first in this process and is
+             freed before the ranks start.  ``dist:moe``: deepseek-moe-16b
+             at full width, 2 layers, B4 S512, ``loss_fn`` under
+             ``production`` (``moe_sharded``: experts over 'model', FSDP
+             over 'data', capacity factor 8) with the kernels, against
+             ``moe_dense`` on one rank: the loss within the path-parity
+             bound, no token dropped, the loads within 1e-3.
+             ``dist:decode``: qwen3-14b at full width, 4 layers, B8, 512-
+             token prompts, a 2304-slot ring S-sharded over 'model' (1152
+             slots a rank), bf16 and int8 caches, prefill and 8 decode steps
+             fed the unsharded run's greedy tokens: every step's logits
+             within the path-parity bound; the int8 store is the kernel on
+             each shard (one launch a layer a call).  ``dist:train``:
+             qwen3-14b at full width, 2 layers, B4 S512, 2 steps with remat
+             and int8 gradient compression on the global leaves' rows,
+             against ``Trainer()`` on one rank: losses within 0.02, grad
+             norms within 1 %.  ``dist:compress``: ``compressed_psum_mean``
+             over 'data' on a (5120, 17408) fp32 leaf, within max|g| / 127
+             x 1.5 of the true mean.  ``dist:restore``: the train leg's
+             two layers (their stacked parameters) saved on the (2, 2)
+             plan restore onto the fused (1, 4) and scale_out (4, 1)
+             plans, every rank's every shard equal to the array written.
+             Per leg: the largest difference
+             and its limit, each rank's resident device bytes against its
+             spec share, the wall seconds (gloo through host memory, no
+             rate claimed) and the launches per kernel.
 
 The line before the last is the card's name and power limit, the one
 before that the kernels' JSON record, and the last line
@@ -2100,6 +2130,495 @@ def train_whisper_phase(smi):
 
 
 
+# ---------------------------------------------------------------------------
+# dist: the sharded paths, 4 ranks on the one card
+# ---------------------------------------------------------------------------
+
+DIST_MESH = (2, 2)                 # (data, model): 4 ranks, gloo, cuda:0
+DIST_RANKS = DIST_MESH[0] * DIST_MESH[1]
+DIST_MOE = (2, 4, 512)             # deepseek-moe-16b: layers, B, S
+DIST_DECODE = (4, 8, 512, 2304, 8)  # qwen3-14b: layers, B, prompt, window,
+#                                     decode steps
+# qwen3-14b: layers, B, S, steps (2, not 3: a step moves ~14 GB a rank
+# through host memory, ~30 s on this layout)
+DIST_TRAIN = (2, 4, 512, 2)
+DIST_COMPRESS = (5120, 17408)      # one full-width qwen3-14b MLP gradient
+# dist:train, losses on the mesh against Trainer() on one rank.  The first
+# step's loss is a forward pass over the same bf16 weights, its rows split
+# over two data ranks (other GEMM shapes, ~1e-3); the next follows an AdamW
+# update whose gradients were summed across ranks in bf16 instead of
+# accumulated in one backward.  0.02 (0.16 % of the ~12.3 loss) holds those,
+# and the grad norm within 1 % catches a gradient summed once too often or
+# too few times, which AdamW's scale invariance would hide in the losses.
+DIST_TRAIN_TOL = 0.02
+DIST_NORM_REL = 1e-2
+# dist:moe, the per-expert load fractions (averaged over 2 layers) against
+# moe_dense's: each is a count over 4 x 512 x 6 = 12,288 assignments, one
+# flipped top-6 choice moves it by 8e-5; 1e-3 admits a dozen per expert
+DIST_LOAD_TOL = 1e-3
+
+
+def _parity_limit(ref) -> float:
+    """The path-parity bound: the larger of 0.1 and 3e-2 of the largest
+    reference magnitude (PERF.md §6)."""
+    return max(PARITY_TOL, PARITY_REL * float(ref.abs().max()))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_cfgs():
+    import dataclasses
+    from repro_torch.configs import get_config
+    L, _, _ = DIST_MOE
+    moe = get_config("deepseek-moe-16b")           # full width, bf16
+    moe = moe.replace(num_layers=L, moe=dataclasses.replace(
+        moe.moe, capacity_factor=8.0))
+    dec = get_config("qwen3-14b").replace(num_layers=DIST_DECODE[0])
+    tr = get_config("qwen3-14b").replace(num_layers=DIST_TRAIN[0])
+    return moe, dec, tr
+
+
+def _dist_train_setup(cfg):
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    _, B, S, steps = DIST_TRAIN
+    return (ShapeConfig("dist", S, B, "train"),
+            TrainConfig(learning_rate=1e-4, warmup_steps=1,
+                        total_steps=steps, remat="full",
+                        grad_compression=True))
+
+
+def _dist_tokens(cfg, B, S, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+
+
+def dist_references(d):
+    """Each leg's unsharded path on this process's card, saved under ``d``
+    for the ranks; every tensor freed before they start."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.train import Trainer
+
+    moe_cfg, dec_cfg, tr_cfg = _dist_cfgs()
+    ref = {}
+    t0 = time.perf_counter()
+    _, B, S = DIST_MOE
+    params = T.init_model(moe_cfg, torch.Generator("cuda").manual_seed(SEED),
+                          "cuda")
+    with torch.no_grad():
+        loss, met = T.loss_fn(
+            params, {"tokens": _dist_tokens(moe_cfg, B, S, 7).cuda()},
+            moe_cfg, T.Runtime(use_kernels=True, remat=False))
+    ref["moe"] = dict(loss=float(loss), load=met["expert_load"].cpu(),
+                      dropped=float(met["dropped_frac"]))
+    del params
+    L, B, S, W, steps = DIST_DECODE
+    params = T.init_model(dec_cfg, torch.Generator("cuda").manual_seed(SEED),
+                          "cuda")
+    prompts = _dist_tokens(dec_cfg, B, S, 8).cuda()
+    for quant in (False, True):
+        rt = T.Runtime(use_kernels=True, kv_quant=quant)
+        with torch.no_grad():
+            logits, st = T.prefill(params, {"tokens": prompts}, dec_cfg, rt,
+                                   window=W)
+            seen, fed = [logits.float().cpu()], []
+            for _ in range(steps):
+                tok = logits.argmax(-1, keepdim=True)
+                fed.append(tok.cpu())
+                logits, st = T.decode_step(params, st, tok, dec_cfg, rt)
+                seen.append(logits.float().cpu())
+        ref[f"decode_q{int(quant)}"] = dict(logits=seen, tokens=fed)
+        del st, logits
+    del params
+    shape, tcfg = _dist_train_setup(tr_cfg)
+    hist = Trainer(tr_cfg, shape, tcfg, device="cuda").train(
+        DIST_TRAIN[3])["history"]
+    ref["train"] = [(m.loss, m.grad_norm) for m in hist]
+    ref["ref_s"] = time.perf_counter() - t0
+    torch.save(ref, d / "ref.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _share(tree) -> int:
+    """Bytes of a tree's local tensors on this rank."""
+    from repro_torch import pytree
+    from repro_torch.parallel import shardctx
+    return sum(shardctx.local(t).numel() * shardctx.local(t).element_size()
+               for t in pytree.leaves(tree))
+
+
+def _leg(name, fn, res):
+    """Run one leg: its launches (zeroed just before, read just after), its
+    wall seconds (gloo-through-host), this rank's device bytes and its
+    process's peak host memory so far."""
+    import resource
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    dist.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                           # zero just before the leg
+    t0 = time.perf_counter()
+    rec = fn()
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = dict(ops.launches)           # read just after
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["host_peak_gb"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 1e6          # kB on Linux
+    res[name] = rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dist_rank(rank, port, d, q):
+    """One rank of the dist phase: joins the gloo group from torchrun's
+    environment, builds the (data 2, model 2) mesh and runs every leg."""
+    import traceback
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(DIST_RANKS),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    res = {"rank": rank}
+    try:
+        _dist_rank(Path(d), res)
+    except BaseException:
+        res["error"] = traceback.format_exc()
+    q.put(res)
+
+
+def _dist_rank(d, res):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch import pytree
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.core.fusion import MeshPlan, plan_family
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import transformer as T
+    from torch.distributed.tensor import Shard
+    from repro_torch.optim.adamw import BLOCK
+    from repro_torch.parallel import compression as C
+    from repro_torch.parallel import shardctx
+    from repro_torch.train import Trainer
+
+    # 4 ranks on one card: NCCL refuses two ranks on one device, so gloo
+    res["backend"] = meshlib.init_distributed()
+    assert res["backend"] == "gloo", res["backend"]
+    base = MeshPlan("base", *DIST_MESH)
+    mesh = base.build("cuda")
+    res["data"], res["model"] = (mesh.get_local_rank("data"),
+                                 mesh.get_local_rank("model"))
+    ref = torch.load(d / "ref.pt")
+    moe_cfg, dec_cfg, tr_cfg = _dist_cfgs()
+    gen = lambda: torch.Generator("cuda").manual_seed(SEED)  # noqa: E731
+
+    def moe_leg():
+        _, B, S = DIST_MOE
+        whole = T.init_model(moe_cfg, gen(), "cuda")
+        params = shardctx.layout_tree(whole, T.model_pspecs(moe_cfg)[1],
+                                      mesh)
+        whole_b = _share(whole)
+        del whole
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        share = _share(params)
+        tokens = shardctx.batch_shard(_dist_tokens(moe_cfg, B, S, 7),
+                                      mesh).cuda()
+        with torch.no_grad(), shardctx.use_mesh(mesh):
+            loss, met = T.loss_fn(params, {"tokens": tokens}, moe_cfg,
+                                  T.Runtime(use_kernels=True,
+                                            production=True, remat=False))
+        r = ref["moe"]
+        return dict(loss=float(loss), ref_loss=r["loss"],
+                    diff=abs(float(loss) - r["loss"]),
+                    limit=max(PARITY_TOL, PARITY_REL * abs(r["loss"])),
+                    dropped=float(met["dropped_frac"]),
+                    load_diff=float((met["expert_load"].cpu()
+                                     - r["load"]).abs().max()),
+                    resident_bytes=resident, share_bytes=share,
+                    whole_bytes=whole_b)
+
+    def decode_leg():
+        L, B, S, W, steps = DIST_DECODE
+        params = T.init_model(dec_cfg, gen(), "cuda")   # replicated weights
+        rows = slice(res["data"] * B // DIST_MESH[0],
+                     (res["data"] + 1) * B // DIST_MESH[0])
+        prompts = shardctx.batch_shard(_dist_tokens(dec_cfg, B, S, 8),
+                                       mesh).cuda()
+        out = {}
+        for quant in (False, True):
+            r = ref[f"decode_q{int(quant)}"]
+            rt = T.Runtime(use_kernels=True, kv_quant=quant)
+            diffs, limits = [], []
+            with torch.no_grad(), shardctx.use_mesh(mesh):
+                logits, st = T.prefill(params, {"tokens": prompts}, dec_cfg,
+                                       rt, window=W)
+                k0 = st.reps[0]["self"].k
+                ring = (k0.shape[2], shardctx.local(k0).shape[2])
+                cache_b = _share(st.reps)
+                for i in range(steps + 1):
+                    want = r["logits"][i][rows]
+                    diffs.append(float((logits.float().cpu() - want)
+                                       .abs().max()))
+                    limits.append(_parity_limit(want))
+                    if i < steps:
+                        logits, st = T.decode_step(
+                            params, st, r["tokens"][i][rows].cuda(),
+                            dec_cfg, rt)
+            del st
+            out[f"q{int(quant)}"] = dict(diff=diffs, limit=limits,
+                                         ring_slots=ring, cache_bytes=cache_b)
+        out["resident_bytes"] = torch.cuda.memory_allocated()
+        out["share_bytes"] = _share(params)
+        return out
+
+    def train_leg():
+        shape, tcfg = _dist_train_setup(tr_cfg)
+        tr = Trainer(tr_cfg, shape, tcfg, mesh=mesh, device="cuda")
+        state = tr.init_state(SEED)
+        # the round trip's kernel launches: one per BLOCK of each leaf's
+        # block (row-aligned: the leaf over the axes that split its first
+        # sharded dimension; else the whole leaf)
+        pieces = 0
+        for p in pytree.leaves(state.params):
+            dims = sorted(q.dim for q in p.placements
+                          if isinstance(q, Shard))
+            n = p.numel()
+            if dims and C._row_aligned(tuple(p.shape), tuple(p.placements),
+                                       mesh, dims[0]):
+                n = shardctx.local(p).shape[dims[0]] * n // p.shape[dims[0]]
+            pieces += -(-n // BLOCK)
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        share = _share(state)
+        out = tr.train(DIST_TRAIN[3], state=state)
+        got = [(m.loss, m.grad_norm) for m in out["history"]]
+        res["_params"] = out["state"].params     # for the restore leg
+        return dict(loss=[g[0] for g in got], ref_loss=[w[0] for w in
+                                                        ref["train"]],
+                    grad_norm=[g[1] for g in got],
+                    ref_grad_norm=[w[1] for w in ref["train"]],
+                    diff=max(abs(g[0] - w[0]) for g, w in
+                             zip(got, ref["train"])),
+                    norm_rel=max(abs(g[1] - w[1]) / w[1] for g, w in
+                                 zip(got, ref["train"])),
+                    limit=DIST_TRAIN_TOL, norm_limit=DIST_NORM_REL,
+                    step_s=[m.dt for m in out["history"]],
+                    quantize_expected=pieces * DIST_TRAIN[3],
+                    resident_bytes=resident, share_bytes=share)
+
+    def compress_leg():
+        R, Cn = DIST_COMPRESS
+        leaves = []
+        for i in range(DIST_MESH[0]):
+            g = torch.Generator("cuda").manual_seed(100 + i)
+            leaves.append(torch.randn((R, Cn), generator=g, device="cuda"))
+        true = sum(leaves) / len(leaves)
+        bound = float(max(x.abs().max() for x in leaves)) / 127.0 * 1.5
+        mine = leaves[res["data"]]
+        del leaves
+        with shardctx.use_mesh(mesh):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, resid = C.compressed_psum_mean({"g": mine}, "data")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        err = float((mean["g"] - true).abs().max())
+        return dict(diff=err, limit=bound, call_s=dt,
+                    resid_max=float(resid["g"].abs().max()))
+
+    def restore_leg():
+        import numpy as np
+        from repro_torch.ckpt.manager import _from_host
+        # the two full-width layers' stack (12 leaves, 1.3 GB): the layouts
+        # the (1, 4) and (4, 1) plans change, without the 3.1 GB of
+        # embedding tables whose save through host memory takes ~20 s here
+        params = {"reps": res.pop("_params")["reps"]}
+        t0 = time.perf_counter()
+        ck = CheckpointManager(str(d / "ckpt"))
+        ck.save(DIST_TRAIN[3], params, blocking=True)
+        ck.wait()
+        out = dict(save_s=time.perf_counter() - t0)
+        meta, specs = ({"reps": t["reps"]} for t in T.model_pspecs(tr_cfg))
+        trees = {"base": (params, mesh)}
+        for name in ("fused", "scale_out"):
+            m2 = plan_family(base)[name].build("cuda")
+            t0 = time.perf_counter()
+            trees[name] = (ck.restore(like=meta, pspecs=specs, mesh=m2,
+                                      device="cuda")[1], m2)
+            out[name] = dict(mesh=list(m2.shape),
+                             restore_s=time.perf_counter() - t0,
+                             share_bytes=_share(trees[name][0]))
+        # each rank's every shard, on the three plans, against the array
+        # written, one leaf in host memory at a time
+        written = d / "ckpt" / f"step_{DIST_TRAIN[3]}"
+        names = json.loads((written / "manifest.json").read_text())["dtypes"]
+        flat = {n: pytree.flatten_with_paths(t) for n, (t, _) in
+                trees.items()}
+        equal = dict.fromkeys(trees, 0)
+        with np.load(written / "arrays.npz") as z:
+            for k in flat["base"]:
+                host = _from_host(z[k], names.get(k))
+                for n, (_, m) in trees.items():
+                    v = flat[n][k]
+                    equal[n] += bool(torch.equal(
+                        shardctx.local(v).cpu(),
+                        shardctx.shard_of(host, m, v.placements)))
+        out["leaves"] = len(flat["base"])
+        out["source_equal"] = equal.pop("base")
+        for n, e in equal.items():
+            out[n].update(equal=e, leaves=out["leaves"])
+        return out
+
+    for name, fn in (("moe", moe_leg), ("decode", decode_leg),
+                     ("train", train_leg), ("compress", compress_leg),
+                     ("restore", restore_leg)):
+        _leg(name, fn, res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_phase(smi):
+    """The sharded paths (``repro_torch.parallel``): 4 ranks on the one
+    card, joined by gloo (NCCL refuses two ranks on one device), mesh (data
+    2, model 2), started with ``torch.multiprocessing`` in the spawn mode.
+    Each leg is held to the unsharded path on the same card, computed
+    first in this process and freed before the ranks start."""
+    import shutil
+    import torch.multiprocessing as mp
+    d = ROOT / "build" / "dist"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    ref = dist_references(d)
+    del ref
+    released(0)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=dist_rank, args=(r, port, str(d), q))
+             for r in range(DIST_RANKS)]
+    for p in procs:
+        p.start()
+    outs = []
+    try:
+        for _ in procs:
+            outs.append(q.get(timeout=900))
+        for p in procs:
+            p.join(timeout=120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    errors = [o for o in outs if "error" in o]
+    assert not errors, "\n".join(o["error"] for o in errors)
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    outs.sort(key=lambda o: o["rank"])
+    by_path, recs = {}, {}
+    for leg in ("moe", "decode", "train", "compress", "restore"):
+        per = [o[leg] for o in outs]
+        by_path[f"dist:{leg}"] = {k: sum(p["launches"][k] for p in per)
+                                  for k in per[0]["launches"]}
+        recs[leg] = per
+    moe, dec, tr, cmp_, rst = (recs[k] for k in ("moe", "decode", "train",
+                                                 "compress", "restore"))
+    for p in moe:
+        assert p["diff"] <= p["limit"], p
+        assert p["dropped"] == 0.0 and p["load_diff"] <= DIST_LOAD_TOL, p
+    for p in dec:
+        for q_ in ("q0", "q1"):
+            assert all(a <= b for a, b in zip(p[q_]["diff"], p[q_]["limit"])), p
+            assert p[q_]["ring_slots"] == (DIST_DECODE[3],
+                                           DIST_DECODE[3] // DIST_MESH[1]), p
+    for p in tr:
+        assert p["diff"] <= p["limit"] and p["norm_rel"] <= p["norm_limit"], p
+    for p in cmp_:
+        assert p["diff"] <= p["limit"], p
+    for p in rst:
+        assert p["source_equal"] == p["leaves"] > 0, p
+        for name in ("fused", "scale_out"):
+            assert p[name]["equal"] == p[name]["leaves"] == p["leaves"], p
+    L = DIST_DECODE[0]
+    # every kernel of each leg's path launched, on every rank
+    assert all(p["launches"]["flash_attention"] == DIST_MOE[0] for p in moe)
+    assert all(p["launches"]["rmsnorm"] > 0 for p in moe + dec)
+    assert all(p["launches"]["quantize_int8"] == L * (1 + DIST_DECODE[4])
+               for p in dec), [p["launches"] for p in dec]
+    assert all(p["launches"]["flash_attention"] == 2 * L for p in dec)
+    assert all(p["launches"]["quantize_int8"] == p["quantize_expected"]
+               for p in tr), [(p["launches"], p["quantize_expected"])
+                              for p in tr]
+    summary = dict(
+        ranks=DIST_RANKS, mesh=dict(data=DIST_MESH[0], model=DIST_MESH[1]),
+        backend="gloo on one card (collectives through host memory)",
+        phase_wall_s=wall, card=smi,
+        moe=dict(arch="deepseek-moe-16b", layers=DIST_MOE[0],
+                 batch=DIST_MOE[1], seq=DIST_MOE[2], capacity_factor=8.0,
+                 loss=[p["loss"] for p in moe], ref_loss=moe[0]["ref_loss"],
+                 max_diff=max(p["diff"] for p in moe), limit=moe[0]["limit"],
+                 dropped=[p["dropped"] for p in moe],
+                 max_load_diff=max(p["load_diff"] for p in moe),
+                 resident_bytes=[p["resident_bytes"] for p in moe],
+                 share_bytes=[p["share_bytes"] for p in moe],
+                 whole_bytes=moe[0]["whole_bytes"],
+                 wall_s=[p["wall_s"] for p in moe],
+                 peak_gb=[p["peak_gb"] for p in moe]),
+        decode={q_: dict(max_diff=max(max(p[q_]["diff"]) for p in dec),
+                         min_limit=min(min(p[q_]["limit"]) for p in dec),
+                         ring_slots=dec[0][q_]["ring_slots"],
+                         cache_bytes=[p[q_]["cache_bytes"] for p in dec])
+                for q_ in ("q0", "q1")},
+        decode_run=dict(arch="qwen3-14b", layers=L, batch=DIST_DECODE[1],
+                        prompt=DIST_DECODE[2], window=DIST_DECODE[3],
+                        steps=DIST_DECODE[4],
+                        resident_bytes=[p["resident_bytes"] for p in dec],
+                        share_bytes=[p["share_bytes"] for p in dec],
+                        wall_s=[p["wall_s"] for p in dec],
+                        peak_gb=[p["peak_gb"] for p in dec]),
+        train=dict(arch="qwen3-14b", layers=DIST_TRAIN[0],
+                   batch=DIST_TRAIN[1], seq=DIST_TRAIN[2],
+                   steps=DIST_TRAIN[3], loss=tr[0]["loss"],
+                   ref_loss=tr[0]["ref_loss"],
+                   grad_norm=tr[0]["grad_norm"],
+                   ref_grad_norm=tr[0]["ref_grad_norm"],
+                   max_diff=max(p["diff"] for p in tr),
+                   max_norm_rel=max(p["norm_rel"] for p in tr),
+                   limit=DIST_TRAIN_TOL, norm_limit=DIST_NORM_REL,
+                   step_s=[p["step_s"] for p in tr],
+                   resident_bytes=[p["resident_bytes"] for p in tr],
+                   share_bytes=[p["share_bytes"] for p in tr],
+                   wall_s=[p["wall_s"] for p in tr],
+                   peak_gb=[p["peak_gb"] for p in tr]),
+        compress=dict(leaf=list(DIST_COMPRESS),
+                      max_diff=max(p["diff"] for p in cmp_),
+                      limit=cmp_[0]["limit"],
+                      call_s=[p["call_s"] for p in cmp_],
+                      wall_s=[p["wall_s"] for p in cmp_]),
+        restore=dict(leaves=rst[0]["leaves"],
+                     source_equal=[p["source_equal"] for p in rst],
+                     save_s=[p["save_s"] for p in rst],
+                     **{k: [p[k] for p in rst] for k in ("fused",
+                                                         "scale_out")}),
+        restore_wall_s=[p["wall_s"] for p in rst],
+        host_peak_gb={leg: [p["host_peak_gb"] for p in per]
+                      for leg, per in recs.items()},
+        launches=by_path)
+    log("dist", json.dumps(summary))
+    return by_path
+
+
 def main() -> int:
     # cuBLAS's deterministic workspace, read when CUDA starts: the whisper
     # train phase runs under torch.use_deterministic_algorithms
@@ -2156,6 +2675,10 @@ def main() -> int:
     by_phase["train:deepseek-moe-16b"] = train_deepseek_phase(smi, H100)
     by_phase["train:whisper-base"] = train_whisper_phase(smi)
     log(f"train: {time.perf_counter() - t:.1f} s")
+    released(0)
+    t = time.perf_counter()
+    by_phase.update(dist_phase(smi))
+    log(f"dist: {time.perf_counter() - t:.1f} s")
 
     kernels = []
     for name, src, tpu in [

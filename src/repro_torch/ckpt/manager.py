@@ -17,8 +17,12 @@ package restores in the other, key for key:
 * **Retention**: the ``keep`` newest checkpoints are retained; older ones
   are deleted only after a newer one is written.
 
-Arrays are stored whole.  Restoring onto a device mesh (``pspecs`` and
-``mesh``: the reference's elastic path) waits for ROADMAP queue 1, item 5.
+Arrays are stored whole, so checkpoints are mesh-agnostic.  Under a mesh
+(``DTensor`` leaves) every rank takes part in gathering each leaf whole and
+rank 0 writes; ``wait()`` then holds every rank at a barrier until the
+write is durable.  The elastic restore (``pspecs`` and ``mesh``) lays each
+leaf out by its resolved spec on the mesh given, whatever plan saved it:
+each rank slices its own shard out of the host array.
 """
 from __future__ import annotations
 
@@ -31,8 +35,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import pytree
+from repro_torch.parallel import shardctx
 
 # dtypes numpy can't serialize natively: stored as a same-width integer view
 _EXOTIC = {
@@ -48,8 +54,9 @@ def _to_host(leaf) -> Tuple[np.ndarray, Optional[str]]:
     if not isinstance(leaf, torch.Tensor):
         return np.array(leaf, copy=True), None
     # a copy even on the CPU (where .cpu() is the live tensor): the next
-    # step updates the state in place while the background write reads it
-    t = leaf.detach().to("cpu", copy=True)
+    # step updates the state in place while the background write reads it;
+    # a DTensor is gathered whole first (a collective: every rank is here)
+    t = shardctx.full(leaf).detach().to("cpu", copy=True)
     name = str(t.dtype).replace("torch.", "")
     if name in _EXOTIC:
         view = _EXOTIC[name][1]
@@ -85,15 +92,24 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False         # a mesh save not yet waited for
 
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
              blocking: bool = False) -> None:
-        """Snapshot now, write in the background (unless blocking)."""
+        """Snapshot now, write in the background (unless blocking).
+        Under a mesh every rank calls it and rank 0 writes."""
         self.wait()                     # one save in flight at a time
         host, dtypes = {}, {}
-        for k, v in pytree.flatten_with_paths(tree).items():
+        leaves = pytree.flatten_with_paths(tree)
+        if any(shardctx.is_dtensor(v) for v in leaves.values()):
+            self._barrier = True
+            if dist.get_rank() != 0:
+                for v in leaves.values():     # each gather, nothing kept
+                    shardctx.full(v)
+                return
+        for k, v in leaves.items():
             host[k], name = _to_host(v)
             if name:
                 dtypes[k] = name
@@ -126,6 +142,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         self._raise_pending()
 
     def _raise_pending(self):
@@ -152,12 +171,13 @@ class CheckpointManager:
         ``like`` gives the tree's structure and each leaf's dtype (its
         tensors may live on the ``meta`` device); leaves land on
         ``device``, else on the ``like`` leaf's device (the CPU for a meta
-        leaf).  Without ``like``: a flat {key: CPU tensor} dict.
+        leaf).  With ``pspecs`` and ``mesh`` (the elastic path) each leaf
+        becomes a ``DTensor`` laid out on ``mesh`` by its resolved spec
+        (shape-aware, ``batch_size`` resolving ``"batch"``).  Without
+        ``like``: a flat {key: CPU tensor} dict.
         """
-        if pspecs is not None or mesh is not None:
-            raise NotImplementedError(
-                "restoring onto a device mesh (pspecs, mesh) waits for the "
-                "sharded path, ROADMAP queue 1, item 5")
+        if (pspecs is None) != (mesh is None):
+            raise ValueError("restore: pass pspecs and mesh together")
         self.wait()
         if step is None:
             step = latest_step(self.directory)
@@ -177,9 +197,16 @@ class CheckpointManager:
         missing = set(ref) - set(flat)
         if missing:
             raise KeyError(f"checkpoint missing arrays: {sorted(missing)[:5]}")
+        specs = (pytree.flatten_with_paths(pspecs) if mesh is not None
+                 else None)
         out = []
         for key, leaf in ref.items():
             dev = device if device is not None else (
                 leaf.device if leaf.device.type != "meta" else "cpu")
-            out.append(flat[key].to(device=dev, dtype=leaf.dtype))
+            if specs is None:
+                out.append(flat[key].to(device=dev, dtype=leaf.dtype))
+            else:
+                out.append(shardctx.layout(
+                    flat[key].to(dtype=leaf.dtype), mesh, specs[key],
+                    batch_size, device=dev))
         return step, pytree.unflatten(like, iter(out)), meta["extra"]

@@ -11,14 +11,14 @@ happens inside a pod, as the paper fuses neighboring SMs only.
 Switching plans reshards every weight, so ``reshard_cost_s`` bounds the
 bytes moved and the controller amortizes it against the predicted per-step
 win before switching.  The link rate defaults to the port's ``H100``
-(NVLink, 450 GB/s each way).  ``MeshPlan.build``, a ``torch.distributed``
-device mesh, waits for the sharded path (ROADMAP queue 1, item 5).
+(NVLink, 450 GB/s each way).  ``MeshPlan.build`` makes the plan's
+``torch.distributed`` device mesh over the joined process group.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.configs.base import H100, HardwareConfig
 
@@ -44,10 +44,29 @@ class MeshPlan:
     def num_devices(self) -> int:
         return self.pod * self.data * self.model
 
-    def build(self, devices=None):
-        raise NotImplementedError(
-            "MeshPlan.build: a torch.distributed device mesh waits for the "
-            "sharded path, ROADMAP queue 1, item 5")
+    def build(self, device_type: Optional[str] = None):
+        """The plan's ``DeviceMesh`` over the first ``num_devices`` ranks
+        of the joined process group (every rank calls it).  A plan larger
+        than the world raises: nothing shrinks quietly.  ``device_type``
+        defaults to ``cuda`` when this rank has a card, else ``cpu``."""
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "MeshPlan.build: join the process group first "
+                "(repro_torch.launch.mesh.init_distributed)")
+        world = dist.get_world_size()
+        if self.num_devices > world:
+            raise ValueError(f"{self} needs {self.num_devices} ranks, the "
+                             f"process group has {world}")
+        if device_type is None:
+            device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        if self.num_devices == world:
+            return init_device_mesh(device_type, self.shape,
+                                    mesh_dim_names=self.axes)
+        ranks = torch.arange(self.num_devices).reshape(self.shape)
+        return DeviceMesh(device_type, ranks, mesh_dim_names=self.axes)
 
 
 def plan_family(base: MeshPlan) -> Dict[str, MeshPlan]:

@@ -6,7 +6,8 @@ its three bounds (compute, memory, interconnect) against a card's peaks,
 with the port's ``H100`` as the default hardware where the reference
 defaults to the TPU v5e.  ``collective_bytes`` parses HLO text, as the
 reference's does.  ``profile_from_compiled`` reads XLA's compiled
-artifacts and waits for ``hlo_analysis`` (ROADMAP queue 1, item 6).
+artifacts and waits for ``hlo_analysis`` (the gpusim / HLO analysis /
+dry-run item of ROADMAP queue 1).
 """
 from __future__ import annotations
 

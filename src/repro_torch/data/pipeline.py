@@ -9,7 +9,7 @@ embeddings for the VLM.  The iterator state is one integer, so
 checkpoint/restore is exact: restoring step k regenerates batch k
 bit-identically on any host count (each host slices its own rows from the
 global batch by index).  The dry-run's ``make_batch_specs`` waits for
-ROADMAP queue 1, item 6.
+the gpusim / HLO analysis / dry-run item of ROADMAP queue 1.
 """
 from __future__ import annotations
 

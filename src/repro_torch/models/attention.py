@@ -18,11 +18,16 @@ quantize kernel a layer; off, their plain versions in
 jnp).
 
 ``decode_attention`` scores one new token against the ring-buffer KV cache
-in torch ops (the reference has no Pallas kernel there).  The reference's
-``shard_map`` sequence-parallel decode is not ported yet (ROADMAP queue 1,
-item 9).  Unlike the reference, decode writes the new K/V into the cache
-in place: a functional copy of every layer's cache per token would move
-the whole cache through memory once per step for nothing.
+in torch ops (the reference has no Pallas kernel there).  Under a mesh the
+ring is sequence-sharded over 'model' (a ``DTensor`` over the model axis,
+``prefill_cache`` builds it so): each model rank holds ``W // n_model``
+slots at offset ``rank * W // n_model``, scores its own slots, and the
+partial softmaxes merge by log-sum-exp (an all-reduce MAX of the running
+max, an all-reduce SUM of the sums and outputs), so KV never leaves its
+shard.  Unlike the reference, decode writes the new K/V into the cache in
+place (the int8 store by offset, on each shard): a functional copy of every
+layer's cache per token would move the whole cache through memory once per
+step for nothing.
 
 KV caches are ring buffers: slot ``i`` holds absolute position
 ``p_i = pos - ((pos - i) mod W)`` (valid iff ``p_i >= 0``), which
@@ -40,6 +45,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import quantize as QZ
 from repro_torch.models import layers
+from repro_torch.parallel import collectives, shardctx
+from repro_torch.parallel.shardctx import P
 
 NEG_INF = -1e30
 
@@ -71,6 +78,19 @@ def init_attention(cfg: ModelConfig, device, generator: torch.Generator,
         params["q_norm"] = torch.ones(lead + (hd,), dtype=dtype, device=device)
         params["k_norm"] = torch.ones(lead + (hd,), dtype=dtype, device=device)
     return params
+
+
+def attention_pspecs(cfg: ModelConfig, cross: bool = False) -> dict:
+    """The reference's specs: kv projections are sharded over "model"
+    only when the kv-head count is mesh-divisible (a multiple of 4);
+    MQA/GQA with few heads replicates them (cheap)."""
+    kv = P("data", None) if cfg.num_kv_heads % 4 else P("data", "model")
+    specs = {"wq": P("data", "model"), "wk": kv, "wv": kv,
+             "wo": P("model", "data")}
+    if cfg.qk_norm and not cross:
+        specs["q_norm"] = P(None)
+        specs["k_norm"] = P(None)
+    return specs
 
 
 def _project_qkv(params, x, cfg: ModelConfig, positions, kv_source=None,
@@ -197,6 +217,12 @@ class KVCache(NamedTuple):
     v_scale: Any = None
 
 
+def cache_pspec(quant: bool = False) -> KVCache:
+    sp = P("batch", "model", None, None)
+    return KVCache(k=sp, v=sp, k_scale=sp if quant else None,
+                   v_scale=sp if quant else None)
+
+
 def _dequantize_kv(q: torch.Tensor, scale, dtype=torch.float32) -> torch.Tensor:
     if scale is None:
         return q.to(dtype)
@@ -229,11 +255,13 @@ def _ring_valid(pos: torch.Tensor, W: int, slots: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_core(q, cache: KVCache, new_k, new_v, pos, *, W, offset,
-                 s_loc, update, use_kernels: bool = False):
-    """Scores one token against the cache; writes its K/V into the cache.
+                 s_loc, update, axis=None, use_kernels: bool = False):
+    """Scores one KV shard; LSE-combines across ``axis`` when given.
 
-    q: (B,1,H,hd) -> internally (B,KV,G,hd); cache arrays: (B,s_loc,KV,*).
-    Handles both bf16 and int8-quantized (k_scale/v_scale) caches.
+    q: (B,1,H,hd) -> internally (B,KV,G,hd); cache arrays: (B,s_loc,KV,*),
+    slots ``offset .. offset + s_loc`` of a ``W``-slot ring; the new K/V is
+    written into its slot when it falls in this shard.  Handles both bf16
+    and int8-quantized (k_scale/v_scale) caches.
     """
     B, _, H, hd = q.shape
     k_cache, v_cache = cache.k, cache.v
@@ -266,9 +294,14 @@ def _decode_core(q, cache: KVCache, new_k, new_v, pos, *, W, offset,
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), kf.float())
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1)                                       # (B,KV,G)
+    if axis is not None:
+        m = collectives.pmax(m, axis)
     p = torch.exp(s - m[..., None])
     l = p.sum(dim=-1)
     o = torch.einsum("bkgs,bskh->bkgh", p.to(vf.dtype).float(), vf.float())
+    if axis is not None:
+        l = collectives.psum(l, axis)
+        o = collectives.psum(o, axis)
     out = (o / torch.clamp(l, min=1e-30)[..., None]).reshape(B, 1, H, hd)
     return out.to(q.dtype), KVCache(k=k_cache, v=v_cache, k_scale=ks,
                                     v_scale=vs)
@@ -284,7 +317,10 @@ def decode_attention(params, cache: KVCache, x_new: torch.Tensor,
 
     x_new: (B, 1, D); pos: (B,) absolute position of the new token (drives
     the ring-slot layout); rope_pos overrides the RoPE angle position when
-    it differs from the ring position (M-RoPE vision offset).
+    it differs from the ring position (M-RoPE vision offset).  A cache
+    sharded over 'model' (``DTensor``) is scored shard by shard and
+    combined across the model ranks; the cache is updated in place and
+    returned as it came.
     """
     B = x_new.shape[0]
     W = cache.k.shape[1]
@@ -297,9 +333,23 @@ def decode_attention(params, cache: KVCache, x_new: torch.Tensor,
         positions = rp[:, None]
     q, new_k, new_v = _project_qkv(params, x_new, cfg, positions,
                                    use_kernels=use_kernels)
-    out, new_cache = _decode_core(q, cache, new_k, new_v, pos, W=W, offset=0,
-                                  s_loc=W, update=update,
-                                  use_kernels=use_kernels)
+    if shardctx.is_dtensor(cache.k):
+        n_model = shardctx.axis_size("model")
+        if n_model != cache.k.device_mesh.size():
+            raise ValueError("decode_attention: a model-sharded cache needs "
+                             "the mesh it was built under")
+        s_loc = W // n_model
+        local = KVCache(*(shardctx.local(t) if t is not None else None
+                          for t in cache))
+        out, _ = _decode_core(q, local, new_k, new_v, pos, W=W,
+                              offset=shardctx.axis_index("model") * s_loc,
+                              s_loc=s_loc, update=update, axis="model",
+                              use_kernels=use_kernels)
+        new_cache = cache
+    else:
+        out, new_cache = _decode_core(q, cache, new_k, new_v, pos, W=W,
+                                      offset=0, s_loc=W, update=update,
+                                      use_kernels=use_kernels)
     out = out.reshape(B, 1, -1) @ params["wo"]
     return out, new_cache
 
@@ -327,6 +377,22 @@ def prefill_cache(params, x, positions, cfg: ModelConfig,
         store = (kernel_ops.quantize_kv_prefill if use_kernels
                  else QZ.quantize_kv_prefill_plain)
         kq, vq, ksc, vsc = store(k, v, W, floor=1e-8)
-        return KVCache(k=kq, v=vq, k_scale=ksc, v_scale=vsc)
+        return _seq_shard_cache(KVCache(k=kq, v=vq, k_scale=ksc, v_scale=vsc))
     k, v = QZ.ring_layout(k, W), QZ.ring_layout(v, W)
-    return KVCache(k=k.contiguous(), v=v.contiguous())
+    return _seq_shard_cache(KVCache(k=k.contiguous(), v=v.contiguous()))
+
+
+def _seq_shard_cache(cache: KVCache) -> KVCache:
+    """Under a mesh whose 'model' axis divides the ring, this rank's slots
+    of it as a ``DTensor`` over the model axis (the reference's
+    ``hint(k, "batch", "model", None, None)``); else the ring whole."""
+    mesh = shardctx.current_mesh()
+    n = shardctx.axis_size("model")
+    W = cache.k.shape[1]
+    if mesh is None or n == 1 or W % n:
+        return cache
+    from torch.distributed.tensor import Shard
+    sub = mesh["model"]
+    return KVCache(*(None if t is None else shardctx.layout_local(
+        t.chunk(n, dim=1)[shardctx.axis_index("model")].contiguous(), sub,
+        [Shard(1)], t.shape) for t in cache))

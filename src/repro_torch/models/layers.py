@@ -1,9 +1,10 @@
 """Shared layer primitives: norms, MLPs, RoPE / M-RoPE, embeddings.
 
 Counterpart of ``repro/models/layers.py``.  Parameters are plain dicts of
-tensors with the reference's keys.  The reference also returns sharding
-specs from every ``init_*``; the port has no mesh yet, so ``init_*``
-returns the params alone.  ``rmsnorm`` and ``rmsnorm_headwise`` go
+tensors with the reference's keys.  The reference's ``init_*`` also return
+sharding specs; here ``init_*`` return the params and each has a
+``*_pspecs`` beside it with the reference's specs.  ``rmsnorm`` and
+``rmsnorm_headwise`` go
 through the hand-written kernel (``kernels.ops.rmsnorm``) when
 ``use_kernel`` is set; the function is the same either way.
 """
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.parallel.shardctx import P
 
 
 def truncated_normal_(t: torch.Tensor, stddev: float,
@@ -34,6 +36,10 @@ def truncated_normal_(t: torch.Tensor, stddev: float,
 def init_rmsnorm(dim: int, dtype, device, lead=()) -> dict:
     return {"scale": torch.ones(tuple(lead) + (dim,), dtype=dtype,
                                 device=device)}
+
+
+def rmsnorm_pspecs() -> dict:
+    return {"scale": P(None)}
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6,
@@ -72,6 +78,13 @@ def init_mlp(d_model: int, d_ff: int, activation: str, dtype, device,
     params["wi_up"] = w((d_model, d_ff), std_in)
     params["wo"] = w((d_ff, d_model), std_out)
     return params
+
+
+def mlp_pspecs(activation: str) -> dict:
+    specs = {"wi_up": P("data", "model"), "wo": P("model", "data")}
+    if activation == "swiglu":
+        specs = {"wi_gate": P("data", "model"), **specs}
+    return specs
 
 
 def mlp(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
@@ -159,6 +172,13 @@ def init_embedding(vocab: int, d_model: int, dtype, tie: bool, device,
             torch.empty((d_model, vocab), dtype=dtype, device=device),
             1.0 / math.sqrt(d_model), generator)
     return params
+
+
+def embedding_pspecs(tie: bool) -> dict:
+    specs = {"table": P("data", "model")}
+    if not tie:
+        specs["out"] = P("data", "model")
+    return specs
 
 
 def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:

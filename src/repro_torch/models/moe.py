@@ -1,17 +1,26 @@
 """Mixture-of-Experts FFN: fine-grained routed experts (+ shared experts,
 + optional arctic-style dense residual branch).
 
-Counterpart of ``repro/models/moe.py``.  The port has no device mesh, so
-``moe_forward`` always takes ``moe_dense``, as the reference does on one
-device: every expert runs on every token and the outputs are combined by
-routing weight.  The reference's capacity-buffer path (``_moe_local``,
-``moe_sharded``) waits for distribution (ROADMAP queue 1, item 5).
+Counterpart of ``repro/models/moe.py``.  Two execution paths:
+
+* ``moe_dense`` — capacity-free: every expert runs on every token and the
+  outputs are combined by routing weight.  ``moe_forward`` takes it without
+  a mesh, as the reference does.  ``x`` is broadcast over the expert axis
+  (``x2d[None]``) instead of repeated E times: the copy changes nothing.
+* ``moe_sharded`` — the production path under a mesh.  Experts are sharded
+  over ``model`` (EP) and tokens over the batch axes; tokens are replicated
+  across ``model``, so each rank packs the tokens of its rows routed to its
+  own experts into a per-expert capacity buffer (slots by masked cumsum,
+  one overflow row for the rest, counted in ``dropped``), runs the expert
+  FFN as one batched matmul, scatters back, and one all-reduce SUM over
+  ``model`` both combines the experts' contributions and restores
+  replication.  Expert weights are also sharded over ``data`` (FSDP) and
+  all-gathered per layer; in training that gather's transpose is a
+  reduce-scatter (all-reduce + slice, ``parallel.collectives``).
 
 The expert products are plain batched matmuls, as the reference's are
-plain einsums outside any Pallas kernel.  ``x`` is broadcast over the
-expert axis (``x2d[None]``) instead of repeated E times as the reference
-does: the copy changes nothing in the result.  Nothing here syncs with the
-host or has a data-dependent shape (no ``.item()``, ``nonzero`` or boolean
+plain einsums outside any Pallas kernel.  Nothing here syncs with the host
+or has a data-dependent shape (no ``.item()``, ``nonzero`` or boolean
 indexing), so a decode step stays capturable, and the routing telemetry
 (``MoEAux``) stays on the device.
 
@@ -28,6 +37,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.parallel import collectives, shardctx
+from repro_torch.parallel.shardctx import P
 
 
 class MoEAux(NamedTuple):
@@ -64,6 +75,22 @@ def init_moe(cfg: ModelConfig, device, generator: torch.Generator,
         params["dense"] = layers.init_mlp(d, cfg.d_ff, cfg.activation, dtype,
                                           device, generator, lead)
     return params
+
+
+def moe_pspecs(cfg: ModelConfig) -> dict:
+    """The reference's specs: expert banks ``("model", "data", None)``
+    (``wo``: ``("model", None, "data")``), the router replicated."""
+    m = cfg.moe
+    names = ["wi_up", "wo"] + (["wi_gate"] if cfg.activation == "swiglu"
+                               else [])
+    specs = {"router": P(None, None),
+             "experts": {k: P("model", None, "data") if k == "wo"
+                         else P("model", "data", None) for k in names}}
+    if m.num_shared:
+        specs["shared"] = layers.mlp_pspecs(cfg.activation)
+    if m.dense_residual:
+        specs["dense"] = layers.mlp_pspecs(cfg.activation)
+    return specs
 
 
 def _route(params, x2d: torch.Tensor, cfg: ModelConfig):
@@ -120,7 +147,130 @@ def moe_dense(params, x: torch.Tensor,
                      dropped=torch.zeros((), device=x.device))
 
 
-def moe_forward(params, x: torch.Tensor,
+# ---------------------------------------------------------------------------
+# Production path
+# ---------------------------------------------------------------------------
+
+def _moe_local(params_local, x_loc: torch.Tensor, cfg: ModelConfig,
+               e_start: int, e_local: int, capacity: int, model_axis=None,
+               fsdp_axis=None) -> Tuple[torch.Tensor, MoEAux]:
+    """Per-rank body (standalone when unsharded).
+
+    x_loc: (T, D) local tokens (replicated over ``model``).
+    ``params_local["experts"]``: the bank of this model rank's experts; with
+    ``fsdp_axis`` it arrives D-sharded (``DTensor``) and is all-gathered
+    here.
+    """
+    m = cfg.moe
+    T_, D = x_loc.shape
+    dev = x_loc.device
+    bank = params_local["experts"]
+    if model_axis is not None or fsdp_axis is not None:
+        keep = (model_axis,) if model_axis is not None else ()
+        bank = {k: shardctx.gather(w, keep) for k, w in bank.items()}
+
+    top_ids, top_w, aux, load = _route(params_local, x_loc, cfg)
+    flat_ids = top_ids.reshape(-1)                       # (T*k,)
+    flat_w = top_w.reshape(-1)
+    mine = (flat_ids >= e_start) & (flat_ids < e_start + e_local)
+    le = torch.clamp(flat_ids - e_start, 0, e_local - 1)  # local expert id
+    # intra-expert slot via masked cumsum
+    onehot = (F.one_hot(le, e_local).to(torch.int32)
+              * mine[:, None].to(torch.int32))           # (T*k, E_loc)
+    slot = torch.cumsum(onehot, dim=0) - onehot
+    slot = torch.sum(slot * onehot, dim=-1)              # (T*k,)
+    keep_ = mine & (slot < capacity)
+    dropped_here = torch.sum(mine & ~keep_).float()
+
+    tok_idx = torch.arange(T_, device=dev).repeat_interleave(m.top_k)
+    slot_c = torch.where(keep_, slot, torch.full_like(slot, capacity))
+    buf = torch.zeros((e_local, capacity + 1, D), dtype=x_loc.dtype,
+                      device=dev)                        # + overflow row
+    rows = torch.where(keep_[:, None], x_loc[tok_idx],
+                       torch.zeros((), dtype=x_loc.dtype, device=dev))
+    buf = buf.index_put((le, slot_c), rows)
+    out_buf = _expert_ffn(bank, buf[:, :capacity], cfg)  # (E_loc, C, D)
+    out_buf = torch.cat([out_buf, torch.zeros((e_local, 1, D),
+                                              dtype=out_buf.dtype,
+                                              device=dev)], dim=1)
+    w_tok = torch.where(keep_, flat_w, torch.zeros_like(flat_w))
+    y_tok = out_buf[le, slot_c] * w_tok[:, None].to(x_loc.dtype)
+    y = torch.zeros_like(x_loc).index_add(0, tok_idx, y_tok)
+
+    if model_axis is not None:
+        y = collectives.psum(y, model_axis)
+        dropped_here = collectives.psum(dropped_here, model_axis)
+    dropped = dropped_here / (T_ * m.top_k)
+    return y, MoEAux(aux_loss=aux, load=load, dropped=dropped)
+
+
+def _moe_local_mapped(params_local, x_loc, cfg, e_start, e_local, capacity,
+                      model_axis, fsdp_axis):
+    """``_moe_local`` with the aux terms given a leading batch-shard dim of
+    1: they are per-data-shard values, not replicated, so ``moe_sharded``
+    averages them over the batch axes."""
+    y, aux = _moe_local(params_local, x_loc, cfg, e_start, e_local, capacity,
+                        model_axis, fsdp_axis)
+    return y, MoEAux(aux_loss=aux.aux_loss[None], load=aux.load[None],
+                     dropped=aux.dropped[None])
+
+
+def _mean_over_batch(aux: MoEAux) -> MoEAux:
+    """Per-data-shard aux terms -> their mean over the batch axes."""
+    bat = shardctx.batch_axes()
+    return MoEAux(*(collectives.pmean(t, bat).mean(dim=0) for t in aux))
+
+
+def moe_sharded(params, x: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, MoEAux]:
-    """The reference's entry point; without a mesh it is ``moe_dense``."""
-    return moe_dense(params, x, cfg)
+    """EP over ``model``, token-parallel over the batch axes, FSDP over
+    ``data``.  ``x`` holds this rank's rows; the capacity counts them (the
+    reference's ``t_local``)."""
+    B, S, D = x.shape
+    m = cfg.moe
+    mesh = shardctx.current_mesh()
+    x2d = x.reshape(-1, D)
+    t_local = x2d.shape[0]
+
+    if mesh is None or "model" not in shardctx.mesh_axes(mesh):
+        cap = int(math.ceil(t_local * m.top_k / m.num_experts
+                            * m.capacity_factor))
+        routed = {"router": shardctx.gather(params["router"]),
+                  "experts": {k: shardctx.gather(w)
+                              for k, w in params["experts"].items()}}
+        y, aux = _moe_local(routed, x2d, cfg, 0, m.num_experts, cap,
+                            None, None)
+        if mesh is not None:
+            aux = _mean_over_batch(MoEAux(*(t[None] for t in aux)))
+        y = y + _extras(params, x2d, cfg)
+        return y.reshape(B, S, D), aux
+
+    n_model = shardctx.axis_size("model")
+    e_local = m.num_experts // n_model
+    capacity = int(math.ceil(t_local * m.top_k / m.num_experts
+                             * m.capacity_factor))
+    has_fsdp = shardctx.axis_size("data") > 1
+    e_start = shardctx.axis_index("model") * e_local
+    # a bank handed over whole (not a DTensor) gives this rank its experts
+    bank = {k: w if shardctx.is_dtensor(w) else w[e_start:e_start + e_local]
+            for k, w in params["experts"].items()}
+    routed = {"router": shardctx.gather(params["router"]), "experts": bank}
+    y, aux = _moe_local_mapped(routed, x2d, cfg, e_start, e_local, capacity,
+                               "model", "data" if has_fsdp else None)
+    # always-on branches (shared experts / arctic dense residual) run as
+    # plain matmuls outside the expert path
+    y = y + _extras(params, x2d, cfg)
+    return y.reshape(B, S, D), _mean_over_batch(aux)
+
+
+def moe_forward(params, x: torch.Tensor, cfg: ModelConfig,
+                production: bool = True) -> Tuple[torch.Tensor, MoEAux]:
+    """``moe_sharded`` under a mesh with ``production``, else
+    ``moe_dense`` (under a mesh its aux terms are averaged over the batch
+    axes, as the reference's global ones are)."""
+    if shardctx.current_mesh() is None:
+        return moe_dense(params, x, cfg)
+    if production:
+        return moe_sharded(params, x, cfg)
+    y, aux = moe_dense(params, x, cfg)
+    return y, _mean_over_batch(MoEAux(*(t[None] for t in aux)))

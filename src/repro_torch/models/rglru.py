@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers, scan_utils
+from repro_torch.parallel.shardctx import P
 
 _C = 8.0  # Griffin's fixed temperature on the recurrence gate
 
@@ -93,6 +94,18 @@ def rglru_forward(params, x: torch.Tensor, cfg: ModelConfig,
                                            if cfg.rglru else 4))
     # a copy: the state must not keep the whole (B, S, W) scan output alive
     return out, RGLRUState(conv=conv_state, h=h_last.clone())
+
+
+def rglru_pspecs() -> dict:
+    return {"in_x": P("data", "model"), "in_gate": P("data", "model"),
+            "conv_w": P(None, "model"), "wa": P("data", "model"),
+            "wx": P("data", "model"), "ba": P("model"), "lam": P("model"),
+            "out": P("model", "data")}
+
+
+def rglru_state_pspec() -> RGLRUState:
+    return RGLRUState(conv=P("batch", None, "model"),
+                      h=P("batch", "model"))
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, device,

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers, scan_utils
+from repro_torch.parallel.shardctx import P
 
 
 class SSMState(NamedTuple):
@@ -102,6 +103,18 @@ def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig,
         return out
     conv_state = scan_utils.conv_tail(xp, s.d_conv)
     return out, SSMState(conv=conv_state, h=h_last)
+
+
+def ssm_pspecs() -> dict:
+    return {"in_proj": P("data", "model"), "conv_w": P(None, "model"),
+            "x_proj": P("model", None), "dt_proj": P(None, "model"),
+            "dt_bias": P("model"), "A_log": P("model", None),
+            "D": P("model"), "out_proj": P("model", "data")}
+
+
+def ssm_state_pspec() -> SSMState:
+    return SSMState(conv=P("batch", None, "model"),
+                    h=P("batch", "model", None))
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, device, lead=()) -> SSMState:

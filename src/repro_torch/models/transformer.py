@@ -33,6 +33,18 @@ requires a gradient, so serving computes exactly what it computes without
 it, at the same cost.  The LM loss streams over
 sequence chunks of ``Runtime.loss_chunk`` positions, so the fp32 (B, S, V)
 logits are never materialized.
+
+Under a device mesh (``parallel.shardctx.use_mesh``) each rank runs these
+entry points on its own rows of the batch, with parameters held as
+``DTensor``s laid out by :func:`model_pspecs`.  Each block gathers its
+weights as it runs (:func:`_pin_block_params`, FSDP) and computes whole on
+the rank's rows; under ``Runtime.production`` the MoE FFN runs the
+reference's expert-parallel ``moe_sharded`` and decode attention the
+sequence-sharded ring (``attention.decode_attention``).  ``loss_fn``
+returns the loss of the whole batch (averaged over the batch axes), as the
+reference's does; ``prefill`` and ``decode_step`` return the rank's rows'
+logits.  Under ``Runtime.seq_shard`` the residual stream lives S-sharded
+over ``model`` between sublayers (Megatron-SP).
 """
 from __future__ import annotations
 
@@ -48,6 +60,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, layers, moe, rglru, ssm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.moe import MoEAux
+from repro_torch.parallel import collectives, shardctx
+from repro_torch.parallel.shardctx import P
 
 
 # ---------------------------------------------------------------------------
@@ -57,18 +71,20 @@ from repro_torch.models.moe import MoEAux
 class Runtime(NamedTuple):
     """Execution knobs threaded through the stack.
 
-    The reference's fields that only a device mesh reads (``production``:
-    the sharded MoE; ``seq_shard``) are absent; they return with the
-    ROADMAP item that ports those paths.  Without a mesh the reference's
-    MoE is ``moe_dense`` whatever ``production`` says, and so is the
-    port's.  The kernels have no backward: a training step keeps
+    ``production`` and ``seq_shard`` are read only under a device mesh:
+    without one the MoE is ``moe_dense`` whatever ``production`` says, as
+    in the reference.  The kernels have no backward: a training step keeps
     ``use_kernels`` off, as the reference's ``Trainer`` does.
     """
     use_kernels: bool = False     # hand-written CUDA kernels vs torch ops
+    production: bool = True       # sharded MoE vs dense oracle
     remat: bool = True            # per-block activation checkpointing
     q_block: int = 512            # chunked-attention q/kv block sizes
     kv_block: int = 1024
     loss_chunk: int = 512         # LM-loss sequence chunk
+    # Megatron-SP: residual stream sharded over 'model' on the sequence dim
+    # between blocks (saved remat residuals shrink by the model width)
+    seq_shard: bool = False
     kv_quant: bool = False        # int8 KV cache + per-vector scales
 
 
@@ -117,7 +133,7 @@ def _index(tree, r: int):
         return {k: _index(v, r) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return _rebuild(tree, [_index(t, r) for t in tree])
-    return tree[r]
+    return shardctx.select(tree, r)
 
 
 def _stack(trees: List[Any]):
@@ -130,7 +146,7 @@ def _stack(trees: List[Any]):
     if isinstance(first, tuple):
         return _rebuild(first, [_stack([t[i] for t in trees])
                                 for i in range(len(first))])
-    return torch.stack(trees)
+    return shardctx.stack(trees)
 
 
 def _write_(dst, src) -> None:
@@ -160,18 +176,25 @@ def _unstack(tree) -> List[Any]:
         per = {k: _unstack(v) for k, v in tree.items()}
         R = len(next(iter(per.values())))
         return [{k: v[r] for k, v in per.items()} for r in range(R)]
-    return list(torch.unbind(tree))
+    return shardctx.unbind(tree)
 
 
 def _remat(fn, *args):
     """``fn(*args)``, its activations recomputed in the backward while
     autograd records a tensor of ``args`` (the reference's
     ``jax.checkpoint``); a plain call otherwise, as in serving, whose
-    parameters need no gradient."""
+    parameters need no gradient.  The recomputation runs on autograd's
+    device thread, so it reinstalls the mesh current at the call."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in pytree.leaves(args)):
-        return checkpoint(fn, *args, use_reentrant=False)
+        mesh = shardctx.current_mesh()
+
+        def on_mesh(*a):
+            with shardctx.use_mesh(mesh):
+                return fn(*a)
+
+        return checkpoint(on_mesh, *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -216,6 +239,81 @@ def init_block(cfg: ModelConfig, kind: str, device,
     return params
 
 
+def block_pspecs(cfg: ModelConfig, kind: str, cross: bool = False):
+    """The reference's PartitionSpec tree of :func:`init_block`."""
+    specs: Dict[str, Any] = {"norm1": layers.rmsnorm_pspecs()}
+    if kind == "attn":
+        specs["mixer"] = attention.attention_pspecs(cfg)
+    elif kind == "ssm":
+        specs["mixer"] = ssm.ssm_pspecs()
+    else:
+        specs["mixer"] = rglru.rglru_pspecs()
+    if cross and kind == "attn":
+        specs["cross_norm"] = layers.rmsnorm_pspecs()
+        specs["cross_attn"] = attention.attention_pspecs(cfg, cross=True)
+    if _has_ffn(cfg, kind):
+        specs["norm2"] = layers.rmsnorm_pspecs()
+        specs["ffn"] = (moe.moe_pspecs(cfg) if cfg.moe is not None
+                        else layers.mlp_pspecs(cfg.activation))
+    return specs
+
+
+def _pin_block_params(params: Dict[str, Any],
+                      production: bool = True) -> Dict[str, Any]:
+    """A block's weights as its layer computes with them: the FSDP gather.
+
+    The reference pins each layer's slice to its stored sharding so XLA
+    keeps the 'data'-axis all-gather inside the (rematted) block instead of
+    hoisting the whole stack's.  Here the gather is explicit and runs inside
+    the block, so only one layer's weights are whole at a time: every
+    ``DTensor`` leaf is all-gathered (``shardctx.gather``), except the
+    routed expert banks under ``production``, which ``moe_sharded`` gathers
+    over 'data' only and keeps sharded over 'model'.  A no-op without a
+    mesh.
+    """
+    if shardctx.current_mesh() is None:
+        return params
+
+    def pin(tree, experts=False):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = pin(v, experts=k == "experts")
+            elif experts and production:
+                out[k] = v
+            else:
+                out[k] = shardctx.gather(v)
+        return out
+
+    return pin(params)
+
+
+def _seq_sharded(rt: Runtime) -> bool:
+    return rt.seq_shard and shardctx.axis_size("model") > 1
+
+
+def _seq_scatter(y: torch.Tensor) -> torch.Tensor:
+    """This rank's S chunk over 'model' (y is whole on every model rank)."""
+    n = shardctx.axis_size("model")
+    if y.shape[1] % n:
+        raise ValueError(f"seq_shard: S={y.shape[1]} does not divide over "
+                         f"{n} model ranks")
+    return y.chunk(n, dim=1)[shardctx.axis_index("model")]
+
+
+def _whole(tree: Dict[str, Any], keys=None) -> Dict[str, torch.Tensor]:
+    """A flat dict of weights outside the blocks (the embedding tables, a
+    final norm), the entries ``keys`` (default: all) gathered under a
+    mesh."""
+    return {k: shardctx.gather(tree[k]) for k in (keys or tree)}
+
+
+def _unembedding(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The table ``layers.unembed`` reads, gathered."""
+    return _whole(params["embed"],
+                  ("table",) if cfg.tie_embeddings else ("out",))
+
+
 def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
                   kind: str, rt: Runtime, *, causal: bool = True,
                   build_cache: bool = False,
@@ -226,8 +324,25 @@ def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
     without one (the reference returns zeros there; ``forward_hidden``
     starts its sum from zeros, so the total is the same).
     """
+    params = _pin_block_params(params, rt.production)
+    seq = _seq_sharded(rt)
+
+    def gather_seq(h):
+        # Megatron-SP transition: the residual stream and its norms live
+        # S-sharded over 'model'; the sublayer runs on the gathered
+        # sequence (an all-gather; its transpose is all-reduce + slice)
+        return collectives.all_gather(h, 1, "model") if seq else h
+
+    def scatter_seq(y):
+        # inverse transition: the sublayer's output returns to the
+        # S-sharded residual stream.  The reference's all-reduce + slice
+        # combines tensor-parallel partial sums; each model rank computes
+        # the sublayer whole here, so the slice is all that remains
+        return _seq_scatter(y) if seq else y
+
     k = rt.use_kernels
-    h = layers.rmsnorm(params["norm1"], x, cfg.norm_eps, use_kernel=k)
+    h = gather_seq(layers.rmsnorm(params["norm1"], x, cfg.norm_eps,
+                                  use_kernel=k))
     cache = None
     if kind == "attn":
         mix = attention.full_attention(
@@ -245,31 +360,36 @@ def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
         if build_cache:
             mix, st = mix
             cache = {"self": st}
-    x = x + mix
+    x = x + scatter_seq(mix)
     if "cross_attn" in params and encoder_out is not None:
         # the chunked torch path, as the reference passes no use_flash here
-        h = layers.rmsnorm(params["cross_norm"], x, cfg.norm_eps,
-                           use_kernel=k)
-        x = x + attention.full_attention(
+        h = gather_seq(layers.rmsnorm(params["cross_norm"], x, cfg.norm_eps,
+                                      use_kernel=k))
+        x = x + scatter_seq(attention.full_attention(
             params["cross_attn"], h, None, cfg, causal=False,
-            encoder_out=encoder_out, q_block=rt.q_block, kv_block=rt.kv_block)
+            encoder_out=encoder_out, q_block=rt.q_block,
+            kv_block=rt.kv_block))
         if build_cache:
             cache["cross"] = attention.build_cross_cache(
                 params["cross_attn"], encoder_out, cfg)
     aux = None
     if "ffn" in params:
-        h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps, use_kernel=k)
+        h = gather_seq(layers.rmsnorm(params["norm2"], x, cfg.norm_eps,
+                                      use_kernel=k))
         if cfg.moe is not None:
-            y, aux = moe.moe_forward(params["ffn"], h, cfg)
+            y, aux = moe.moe_forward(params["ffn"], h, cfg,
+                                     production=rt.production)
         else:
             y = layers.mlp(params["ffn"], h, cfg.activation)
-        x = x + y
+        x = x + scatter_seq(y)
+    x = shardctx.hint(x, "batch", "model" if seq else None, None)
     return x, aux, cache
 
 
 def block_decode(params, state, x_new, pos, cfg: ModelConfig, kind: str,
                  rt: Runtime, rope_pos=None):
     """One-token block step. x_new: (B,1,D). Returns (x, new_state)."""
+    params = _pin_block_params(params, rt.production)
     k = rt.use_kernels
     h = layers.rmsnorm(params["norm1"], x_new, cfg.norm_eps, use_kernel=k)
     new_state = dict(state)
@@ -297,7 +417,8 @@ def block_decode(params, state, x_new, pos, cfg: ModelConfig, kind: str,
     if "ffn" in params:
         h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps, use_kernel=k)
         if cfg.moe is not None:
-            y, _ = moe.moe_forward(params["ffn"], h, cfg)
+            y, _ = moe.moe_forward(params["ffn"], h, cfg,
+                                   production=rt.production)
         else:
             y = layers.mlp(params["ffn"], h, cfg.activation)
         x = x + y
@@ -332,6 +453,33 @@ def init_model(cfg: ModelConfig, generator: torch.Generator,
                                        (cfg.encoder_layers,))
         params["enc_norm"] = layers.init_rmsnorm(cfg.d_model, dtype, dev)
     return params
+
+
+def _lead(specs):
+    """Specs of a tree stacked on a leading (unsharded) layer axis."""
+    return pytree.map_(lambda s: P(None, *s), specs)
+
+
+def model_pspecs(cfg: ModelConfig):
+    """(parameters on the ``meta`` device, their PartitionSpec tree): the
+    reference's ``model_pspecs``, without allocating any parameters."""
+    params = init_model(cfg, torch.Generator(), device="meta")
+    specs: Dict[str, Any] = {
+        "embed": layers.embedding_pspecs(cfg.tie_embeddings),
+        "final_norm": layers.rmsnorm_pspecs()}
+    pattern = _pattern(cfg)
+    R, rem = divmod(cfg.num_layers, len(pattern))
+    cross = cfg.cross_attention
+    if R > 0:
+        specs["reps"] = tuple(_lead(block_pspecs(cfg, kind, cross))
+                              for kind in pattern)
+    if rem:
+        specs["rest"] = tuple(block_pspecs(cfg, pattern[j], cross)
+                              for j in range(rem))
+    if cfg.encoder_layers:
+        specs["encoder"] = _lead(block_pspecs(cfg, "attn"))
+        specs["enc_norm"] = layers.rmsnorm_pspecs()
+    return params, specs
 
 
 def count_params(params) -> int:
@@ -374,7 +522,7 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
-    x = layers.embed(params["embed"], tokens)
+    x = layers.embed(_whole(params["embed"], ("table",)), tokens)
     encoder_out = None
     if cfg.encoder_layers:
         # whisper: the conv frontend is a stub — precomputed frame embeddings
@@ -393,6 +541,7 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         positions = _mrope_positions(B, S, 0, dev)
     else:
         positions = torch.arange(S, device=dev)[None].expand(B, S)
+    x = shardctx.hint(x, "batch", None, None)
     return x, positions, encoder_out
 
 
@@ -407,10 +556,13 @@ def encode(params, enc_in: torch.Tensor, cfg: ModelConfig,
         return block_forward(p, x, None, None, cfg, "attn", rt,
                              causal=False)[0]
 
-    x = enc_in
+    seq = _seq_sharded(rt)
+    x = _seq_scatter(enc_in) if seq else enc_in
     for p in _unstack(params["encoder"]):
         x = _remat(one, p, x) if rt.remat else one(p, x)
-    return layers.rmsnorm(params["enc_norm"], x, cfg.norm_eps,
+    if seq:
+        x = collectives.all_gather(x, 1, "model")
+    return layers.rmsnorm(_whole(params["enc_norm"]), x, cfg.norm_eps,
                           use_kernel=rt.use_kernels)
 
 
@@ -426,12 +578,17 @@ def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
     Each cache part is ``None`` unless ``build_cache``; ``caches_rep`` has
     one entry per pattern position, stacked on R.  ``aux`` sums the MoE
     blocks' telemetry (zeros without MoE).  Each block is checkpointed
-    under ``rt.remat`` unless it builds a cache.
+    under ``rt.remat`` unless it builds a cache.  Under ``seq_shard`` the
+    stream is cut into this rank's S chunk before the first block and
+    gathered after the last.
     """
     pattern = _pattern(cfg)
     aux = _zero_aux(cfg, x.device)
     caches_rep, caches_rest = None, None
     remat = rt.remat and not build_cache
+    seq = _seq_sharded(rt)
+    if seq:
+        x = _seq_scatter(x)
 
     def one(p, x, kind):
         nonlocal aux
@@ -462,7 +619,9 @@ def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
             caches.append(c)
         if build_cache:
             caches_rest = tuple(caches)
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps,
+    if seq:
+        x = collectives.all_gather(x, 1, "model")
+    x = layers.rmsnorm(_whole(params["final_norm"]), x, cfg.norm_eps,
                        use_kernel=rt.use_kernels)
     return x, aux, (caches_rep, caches_rest)
 
@@ -471,7 +630,8 @@ def logits_fn(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT):
     """Full (B,S,V) logits and the MoE aux — smoke-test scale only."""
     x, positions, enc = embed_inputs(params, batch, cfg, rt)
     x, aux, _ = forward_hidden(params, x, positions, enc, cfg, rt)
-    return layers.unembed(params["embed"], x, cfg.tie_embeddings), aux
+    return layers.unembed(_unembedding(params, cfg), x,
+                          cfg.tie_embeddings), aux
 
 
 # ---------------------------------------------------------------------------
@@ -504,9 +664,10 @@ def _chunked_lm_loss(params, x, tokens, cfg: ModelConfig, chunk: int):
         tg = F.pad(tg, (0, pad))
     valid = (torch.arange(nc * c, device=x.device) < n).float()
     total = torch.zeros((), device=x.device)
+    embed = _unembedding(params, cfg)
     for i in range(nc):
         sl = slice(i * c, (i + 1) * c)
-        total = total + _remat(_chunk_nll, params["embed"], xs[:, sl],
+        total = total + _remat(_chunk_nll, embed, xs[:, sl],
                                tg[:, sl], valid[sl], cfg.tie_embeddings)
     return total / (B * n)
 
@@ -515,10 +676,12 @@ def loss_fn(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT):
     """-> (loss, metrics). metrics carries the AMOEBA divergence signals:
     for an MoE model the load-balance loss (``moe_aux``), the mean expert
     load (``expert_load``, (E,)) and the dropped fraction, each averaged
-    over the MoE layers."""
+    over the MoE layers.  Under a mesh ``batch`` holds this rank's rows and
+    the loss is the whole batch's, the mean over the batch axes."""
     x, positions, enc = embed_inputs(params, batch, cfg, rt)
     x, aux, _ = forward_hidden(params, x, positions, enc, cfg, rt)
     lm = _chunked_lm_loss(params, x, batch["tokens"], cfg, rt.loss_chunk)
+    lm = collectives.pmean(lm, shardctx.batch_axes())
     loss = lm
     n_moe = sum(1 for k in cfg.layer_kinds if k != "ssm") or 1
     metrics = {"lm_loss": lm}
@@ -577,6 +740,29 @@ def init_decode_state(cfg: ModelConfig, batch: int, seq_len: int,
                        rest=rest)
 
 
+def decode_state_pspecs(cfg: ModelConfig, kv_quant: bool = False):
+    """PartitionSpec tree matching init_decode_state (leading layer dim on
+    reps), with the 'batch' placeholder resolved by ``parallel.resolve``."""
+    pattern = _pattern(cfg)
+    R, rem = divmod(cfg.num_layers, len(pattern))
+
+    def one(kind):
+        if kind == "attn":
+            st = {"self": attention.cache_pspec(quant=kv_quant)}
+            if cfg.cross_attention:
+                st["cross"] = KVCache(k=P("batch", None, None, None),
+                                      v=P("batch", None, None, None))
+            return st
+        if kind == "ssm":
+            return {"self": ssm.ssm_state_pspec()}
+        return {"self": rglru.rglru_state_pspec()}
+
+    reps = tuple(_lead(one(k)) for k in pattern) if R else ()
+    rest = tuple(one(pattern[j]) for j in range(rem))
+    return DecodeState(pos=P("batch"), rope_offset=P("batch"), reps=reps,
+                       rest=rest)
+
+
 def prefill(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT,
             window: Optional[int] = None):
     """Full-sequence forward that also builds the decode state.
@@ -591,7 +777,7 @@ def prefill(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT,
     x, _, (caches_rep, caches_rest) = forward_hidden(
         params, x, positions, enc, cfg, rt, build_cache=True,
         cache_window=window)
-    logits = layers.unembed(params["embed"], x[:, -1:],
+    logits = layers.unembed(_unembedding(params, cfg), x[:, -1:],
                             cfg.tie_embeddings)[:, 0]
     B, S = batch["tokens"].shape
     dev = x.device
@@ -617,7 +803,8 @@ def decode_step(params, state: DecodeState, new_tokens: torch.Tensor,
     pattern = _pattern(cfg)
     pos = state.pos
     rope_pos = pos + state.rope_offset
-    x = layers.embed(params["embed"], new_tokens)            # (B,1,D)
+    embed = _whole(params["embed"])
+    x = layers.embed(embed, new_tokens)                      # (B,1,D)
     if cfg.encoder_layers:
         # sinusoidal position of the new token
         x = x + layers.sinusoidal_at(pos, cfg.d_model).to(x.dtype)[:, None]
@@ -634,8 +821,8 @@ def decode_step(params, state: DecodeState, new_tokens: torch.Tensor,
                               pattern[j % len(pattern)], rt,
                               rope_pos=rope_pos)
         new_rest.append(new)
-    x = layers.rmsnorm(params["final_norm"], x, cfg.norm_eps,
+    x = layers.rmsnorm(_whole(params["final_norm"]), x, cfg.norm_eps,
                        use_kernel=rt.use_kernels)
-    logits = layers.unembed(params["embed"], x, cfg.tie_embeddings)[:, 0]
+    logits = layers.unembed(embed, x, cfg.tie_embeddings)[:, 0]
     return logits, DecodeState(pos=pos + 1, rope_offset=state.rope_offset,
                                reps=state.reps, rest=tuple(new_rest))

@@ -1,4 +1,4 @@
-"""AdamW for one device.
+"""AdamW, with its state laid out as the parameters are (ZeRO).
 
 Counterpart of ``repro/optim/adamw.py``.  The math is the reference's, in
 fp32, with results cast back to each leaf's storage dtype; moments are kept
@@ -9,8 +9,16 @@ least 8 layers) are updated one layer at a time, as the reference's
 ``lax.map`` does, and any piece larger than ``BLOCK`` elements in flat
 blocks: the math is elementwise, so the result is the same bit for bit
 while the fp32 temporaries stay small (qwen3-14b's 151,936 x 5,120
-embedding would need 3.1 GB for each).  The moments' PartitionSpecs
-(``adamw_pspecs``) wait for the sharded path (ROADMAP queue 1, item 5).
+embedding would need 3.1 GB for each).  Updates go through flat views,
+so every parameter and moment must be contiguous: ``adamw_update`` raises
+on one that is not, whose update would land in a copy.
+
+The moments mirror the parameter PartitionSpecs (``adamw_pspecs``), so
+under a mesh each rank updates its own shards: the update is elementwise,
+so the rank's shards of the parameters, gradients and moments (the local
+tensors of ``DTensor``s with the same layout) update as the whole would.
+Only the global norm crosses ranks: :func:`global_norm` counts each element
+of a ``DTensor`` once, whatever copies of it the ranks hold.
 """
 from __future__ import annotations
 
@@ -20,6 +28,8 @@ from typing import Any, Iterator, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import pytree
+from repro_torch.parallel import collectives, shardctx
+from repro_torch.parallel.shardctx import P
 
 # the most elements one fp32 temporary of the update holds (256 MB)
 BLOCK = 1 << 26
@@ -35,13 +45,18 @@ def adamw_init(params, state_dtype: Optional[str] = None) -> AdamWState:
     dt = getattr(torch, state_dtype) if state_dtype else None
 
     def zero(p):
-        return torch.zeros_like(p, dtype=dt or (
+        return shardctx.zeros_like_layout(p, dtype=dt or (
             p.dtype if p.is_floating_point() else torch.float32))
 
     dev = pytree.leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=pytree.map_(zero, params),
                       v=pytree.map_(zero, params))
+
+
+def adamw_pspecs(param_pspecs) -> AdamWState:
+    """State PartitionSpecs mirroring the parameter specs."""
+    return AdamWState(step=P(), m=param_pspecs, v=param_pspecs)
 
 
 def cosine_schedule(step: torch.Tensor, *, base_lr: float, warmup: int,
@@ -71,10 +86,23 @@ def _pieces(t: torch.Tensor) -> Iterator[torch.Tensor]:
 
 @torch.no_grad()
 def global_norm(grads) -> torch.Tensor:
-    """Global L2 norm in fp32, without an fp32 copy of any large leaf."""
-    sq = [torch.sum(torch.square(piece.float()))
-          for g in pytree.leaves(grads) for piece in _pieces(g)]
-    return torch.sqrt(torch.stack(sq).sum())
+    """Global L2 norm in fp32, without an fp32 copy of any large leaf.
+
+    ``DTensor`` leaves sum their local shards, each divided by the number
+    of ranks holding a copy, and the total is all-reduced over the mesh.
+    """
+    sq, mesh = [], None
+    for g in pytree.leaves(grads):
+        if shardctx.is_dtensor(g):
+            mesh = g.device_mesh
+        n = shardctx.replication(g)
+        s = torch.stack([torch.sum(torch.square(piece.float()))
+                         for piece in _pieces(shardctx.local(g))]).sum()
+        sq.append(s / n if n > 1 else s)
+    total = torch.stack(sq).sum()
+    if mesh is not None:
+        collectives.all_reduce_(total, axes=mesh.mesh_dim_names, mesh=mesh)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -97,7 +125,14 @@ def adamw_update(params, grads, state: AdamWState, *, lr,
                  grad_scale=1.0) -> Tuple[Any, AdamWState]:
     """One AdamW step, in place on ``params`` and the moments; returns
     (params, the new state).  ``grad_scale`` applies gradient clipping
-    inside the update."""
+    inside the update.  Every parameter and moment must be contiguous."""
+    for name, tree in (("parameter", params), ("m", state.m),
+                       ("v", state.v)):
+        for x in pytree.leaves(tree):
+            if not x.is_contiguous():
+                raise ValueError(
+                    f"adamw_update: a non-contiguous {name} of shape "
+                    f"{tuple(x.shape)}; its update would land in a copy")
     step = state.step + 1
     t = step.float()
     c1 = 1.0 - torch.pow(b1, t)

@@ -1,4 +1,4 @@
-"""Fault-tolerant trainer, on one device.
+"""Fault-tolerant trainer, on one device or over a device mesh.
 
 Counterpart of ``repro/train/trainer.py``.  The step is eager and keeps
 the reference's order: loss and gradients by autograd through
@@ -21,10 +21,22 @@ Fault tolerance, as the reference's:
 Divergence telemetry (MoE expert imbalance) is fed to the AMOEBA
 controller each step when one is attached.
 
+Under a mesh (``mesh=``, a ``DeviceMesh``; every rank runs the same
+trainer) parameters, moments and residuals are ``DTensor``s laid out by
+their resolved specs (``state_pspecs``), so each rank holds its share;
+``place_batch`` gives each rank its rows of the batch.  Each rank takes
+gradients of ``loss / world_size`` through the model's gathers, whose
+transposes leave on each rank the exact gradient of its own shards (see
+``parallel.collectives``).  The global norm counts every element once, and
+the int8 compression quantizes the rows of the whole (global) leaf, as the
+reference's does (``compression.round_trip_sharded_``: each rank gathers
+only the dimensions that cut its rows and keeps its shard of the
+result).  AdamW is elementwise and
+updates each rank's shards in place.  A checkpoint saved under one plan
+restores onto another (``ckpt.restore(pspecs=, mesh=)``).
+
 The training step runs ``use_kernels=False``, as the reference's does: the
-kernels have no backward.  A device mesh (the reference's sharded step,
-``state_pspecs``, the elastic restore) waits for ROADMAP queue 1, item 5:
-``mesh`` raises rather than being ignored.  Floating-point inputs
+kernels have no backward.  Floating-point inputs
 (whisper's audio frames, qwen2-vl's patch embeddings) are fed in the
 model's dtype; for a bfloat16 model the reference would carry float32
 frames through the encoder in float32 by type promotion, which torch's
@@ -46,6 +58,8 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw as A
 from repro_torch.parallel import compression as C
+from repro_torch.parallel import shardctx
+from repro_torch.parallel.shardctx import P
 from repro_torch.train.stragglers import StragglerMonitor
 
 
@@ -77,14 +91,13 @@ class Trainer:
                  controller: Optional[AmoebaController] = None,
                  data_cfg: DataConfig = DataConfig(),
                  state_dtype: Optional[str] = None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): the sharded step waits for ROADMAP "
-                "queue 1, item 5")
         self.model_cfg = model_cfg
         self.shape = shape
         self.tcfg = tcfg
-        self.rt = rt or T.Runtime(remat=tcfg.remat != "none")
+        self.rt = rt or T.Runtime(production=mesh is not None,
+                                  remat=tcfg.remat != "none")
+        self.mesh = mesh
+        self._pspecs = None
         self.controller = controller
         self.data = SyntheticLM(model_cfg, shape, data_cfg)
         self.state_dtype = state_dtype
@@ -106,8 +119,40 @@ class Trainer:
 
     def init_state(self, seed: int = 0) -> TrainState:
         """Random parameters from a seeded generator on the trainer's
-        device, zero moments and residuals."""
-        return self._fresh_state(seed, self.device)
+        device, zero moments and residuals; under a mesh each rank makes
+        the whole parameters (the same on every rank) and keeps its shards,
+        and the moments and residuals are made as shards."""
+        if self.mesh is None:
+            return self._fresh_state(seed, self.device)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        whole = T.init_model(self.model_cfg, gen, self.device)
+        params = shardctx.layout_tree(whole, self.state_pspecs().params,
+                                      self.mesh)
+        del whole
+        residuals = (C.init_residuals(params)
+                     if self.tcfg.grad_compression else None)
+        return TrainState(params=params,
+                          opt=A.adamw_init(params, self.state_dtype),
+                          data_step=torch.zeros((), dtype=torch.int32,
+                                                device=self.device),
+                          residuals=residuals)
+
+    def place_state(self, state: TrainState) -> TrainState:
+        """A whole state (the same on every rank: a reference's, a
+        restored one) laid out by ``state_pspecs`` on the trainer's mesh
+        and device; without a mesh, moved to the device."""
+        if self.mesh is None:
+            return pytree.map_(lambda t: t.to(self.device), state)
+        return shardctx.layout_tree(state, self.state_pspecs(), self.mesh,
+                                    device=self.device)
+
+    def state_pspecs(self) -> TrainState:
+        if self._pspecs is None:
+            _, self._pspecs = T.model_pspecs(self.model_cfg)
+        residual_specs = self._pspecs if self.tcfg.grad_compression else None
+        return TrainState(params=self._pspecs,
+                          opt=A.adamw_pspecs(self._pspecs),
+                          data_step=P(), residuals=residual_specs)
 
     def _restore_template(self) -> TrainState:
         """The state's structure and dtypes on the meta device (no memory:
@@ -118,7 +163,10 @@ class Trainer:
 
     def loss_and_grads(self, params, batch):
         """-> (loss, metrics, grads) by autograd through ``loss_fn``; grads
-        in the parameters' dtypes."""
+        in the parameters' dtypes (under a mesh, ``DTensor``s laid out as
+        the parameters, each rank's shards exact)."""
+        if self.mesh is not None:
+            return self._mesh_loss_and_grads(params, batch)
         leaves = pytree.leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -130,6 +178,22 @@ class Trainer:
                 p.requires_grad_(False)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 pytree.unflatten(params, iter(grads)))
+
+    def _mesh_loss_and_grads(self, params, batch):
+        """The autograd leaves are this rank's shards; the model sees them
+        as ``DTensor``s.  The loss is the whole batch's on every rank, so
+        each rank differentiates ``loss / world_size``."""
+        flat = pytree.leaves(params)
+        locs = [shardctx.local(p).detach().requires_grad_(True)
+                for p in flat]
+        view = pytree.unflatten(params, iter(
+            shardctx.like(p, x) for p, x in zip(flat, locs)))
+        with shardctx.use_mesh(self.mesh):
+            loss, metrics = T.loss_fn(view, batch, self.model_cfg, self.rt)
+            grads = torch.autograd.grad(loss / self.mesh.size(), locs)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                pytree.unflatten(params, iter(
+                    shardctx.like(p, g) for p, g in zip(flat, grads))))
 
     def _accumulated(self, params, batch):
         """``loss_and_grads`` summed over ``micro_steps`` microbatches (row
@@ -171,13 +235,21 @@ class Trainer:
             # of the compressed data-parallel all-reduce
             for g, r in zip(pytree.leaves(grads),
                             pytree.leaves(state.residuals)):
-                C.round_trip_(g, r)
+                if shardctx.is_dtensor(g):
+                    C.round_trip_sharded_(g, r)
+                else:
+                    C.round_trip_(g, r)
         lr = A.cosine_schedule(state.opt.step, base_lr=tcfg.learning_rate,
                                warmup=tcfg.warmup_steps,
                                total=tcfg.total_steps)
-        params, opt = A.adamw_update(
-            state.params, grads, state.opt, lr=lr,
-            weight_decay=tcfg.weight_decay, grad_scale=gscale)
+        # elementwise: each rank's shards update as the whole would
+        loc = lambda t: pytree.map_(shardctx.local, t)  # noqa: E731
+        _, opt = A.adamw_update(
+            loc(state.params), loc(grads),
+            state.opt._replace(m=loc(state.opt.m), v=loc(state.opt.v)),
+            lr=lr, weight_decay=tcfg.weight_decay, grad_scale=gscale)
+        params = state.params
+        opt = opt._replace(m=state.opt.m, v=state.opt.v)
         new_state = TrainState(params=params, opt=opt,
                                data_step=state.data_step + 1,
                                residuals=state.residuals)
@@ -189,20 +261,23 @@ class Trainer:
 
     def place_batch(self, batch: Dict[str, np.ndarray]):
         """Host batch -> device tensors: int64 tokens, floating inputs in
-        the model's dtype."""
+        the model's dtype; under a mesh this rank's rows (sharded over the
+        batch axes, replicated when they do not divide the batch)."""
         dtype = getattr(torch, self.model_cfg.dtype)
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(v)
             t = t.long() if k == "tokens" else t.to(dtype)
-            out[k] = t.to(self.device)
+            out[k] = shardctx.batch_shard(t, self.mesh).to(self.device)
         return out
 
     # -- the loop -------------------------------------------------------------------
 
     def _restore(self, ckpt) -> TrainState:
-        return ckpt.restore(like=self._restore_template(),
-                            device=self.device)[1]
+        return ckpt.restore(
+            like=self._restore_template(),
+            pspecs=self.state_pspecs() if self.mesh is not None else None,
+            mesh=self.mesh, device=self.device)[1]
 
     def train(self, steps: int, state: Optional[TrainState] = None,
               ckpt=None, log_every: int = 10,

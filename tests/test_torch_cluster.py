@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 
 from hypothesis import given, settings, strategies as st  # noqa: E402

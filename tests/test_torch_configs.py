@@ -9,7 +9,8 @@ import sys
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import repro.configs as J  # noqa: E402
 import repro.configs.base as JB  # noqa: E402

@@ -11,7 +11,8 @@ import json
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import repro.control as JC  # noqa: E402
 import repro.core.predictor as JP  # noqa: E402

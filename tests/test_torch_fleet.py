@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 
 import repro.configs as JCFG  # noqa: E402

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 from repro_torch.kernels import flash_attention as FA  # noqa: E402
 from repro_torch.kernels import linear_scan as LS  # noqa: E402

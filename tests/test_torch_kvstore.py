@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402

@@ -25,7 +25,8 @@ import json
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 
 import repro.cluster as JCL  # noqa: E402
 import repro.configs as JCFG  # noqa: E402

@@ -12,11 +12,13 @@ draws rounded to nearest even on both sides.  Tolerances:
   another order).
 * ``compress_leaf`` / ``decompress_leaf``: exact (codes, scales and the
   dequantized leaf): the same IEEE operations, run op by op on both sides.
+* ``adamw_update`` refuses a non-contiguous parameter or moment.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
@@ -164,3 +166,33 @@ def test_round_trip_is_the_reference_error_feedback():
     assert np.array_equal(tr.numpy(), np.asarray(gf - deq))
     res = C.init_residuals({"a": tg, "b": (tr,)})
     assert res["a"].dtype == torch.float32 and not res["b"][0].any()
+
+
+@pytest.mark.parametrize("which", ["params", "m"])
+def test_adamw_update_refuses_a_non_contiguous_leaf(which):
+    """Updates go through flat views; a non-contiguous leaf's would land
+    in a copy and be lost, so the update raises before touching anything."""
+    p = {"w": torch.zeros(6, 4)}
+    g = {"w": torch.ones(6, 4)}
+    st = A.adamw_init(p)
+    if which == "params":
+        p = {"w": torch.zeros(4, 6).t()}
+    else:
+        st = st._replace(m={"w": torch.zeros(4, 6).t()})
+    before = p["w"].clone()
+    with pytest.raises(ValueError, match="non-contiguous"):
+        A.adamw_update(p, g, st, lr=1e-3)
+    assert torch.equal(p["w"], before)
+
+
+def test_round_trip_over_row_aligned_blocks_equals_the_whole_leaf():
+    """The sharded trainer runs the whole leaf's round trip over blocks of
+    whole 1,024-value rows: the same rows, so the same bits."""
+    rng = np.random.default_rng(11)
+    g = torch.from_numpy(rng.standard_normal(9000).astype(np.float32))
+    r = torch.from_numpy(rng.standard_normal(9000).astype(np.float32)) / 50
+    g1, r1, g2, r2 = g.clone(), r.clone(), g.clone(), r.clone()
+    C.round_trip_(g1, r1)
+    for lo in range(0, 9000, 2048):
+        C.round_trip_(g2[lo:lo + 2048], r2[lo:lo + 2048])
+    assert torch.equal(g1, g2) and torch.equal(r1, r2)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 
 from repro.configs import get_config as jget_config  # noqa: E402

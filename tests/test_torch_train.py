@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -258,9 +259,12 @@ def test_failure_resume_is_exact(tmp_path):
 
 
 def test_mesh_and_device_refused_not_ignored():
+    from repro_torch.parallel.resolve import AbstractMesh
     cfg = get_config("qwen3-14b", reduced=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Trainer(cfg, ShapeConfig(*SHAPE), mesh=object(), device="cpu")
+    mesh = AbstractMesh((2, 2), ("data", "model"))
+    tr = Trainer(cfg, ShapeConfig(*SHAPE), mesh=mesh, device="cpu")
+    assert tr.mesh is mesh and tr.rt.production   # the sharded step
+    assert not Trainer(cfg, ShapeConfig(*SHAPE), device="cpu").rt.production
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(cfg, ShapeConfig(*SHAPE))
