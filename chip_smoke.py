@@ -106,8 +106,28 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              under ``build/``: every step's loss equal to the
              uninterrupted run's exactly (under
              ``torch.use_deterministic_algorithms``), and the last
-             checkpoint restoring key for key into a fresh state.
-8. dist    — the sharded paths (``repro_torch.parallel``): 4 ranks on the
+             checkpoint restoring key for key into a fresh state.  Before
+             the qwen3-14b and deepseek-moe-16b runs, one step of the same
+             configuration is counted on the ``meta`` device
+             (``core.step_count``: nothing allocated); each run's first
+             step is counted on the card by the same mode.  The FLOPs must
+             be equal, and within 2 % of ``train_flops``' executed
+             reckoning; the meta peak within 15 % of the run's
+             ``torch.cuda.max_memory_allocated()``.
+8. gpusim  — the paper's simulator (``core.gpusim``, host numpy, no
+             device work): every scheme of ``SCHEMES`` over the 12
+             workloads; the Fig 12 speedups over ``baseline`` (SM, MUM,
+             the ``warp_regroup`` geomean, AMOEBA over DWS, the static
+             choice for CP and 3MM) held to tests/test_gpusim.py's ranges.
+9. dryrun  — ``launch.dryrun``'s mesh cells on ``fake`` process groups in
+             a child process, started before the build (it needs only
+             the host; no card is visible to it) and read here:
+             qwen3-14b ``train_4k`` under the base, fused and scale_out
+             plans (256 ranks), deepseek-moe-16b ``decode_32k`` (256) and
+             qwen3-14b ``prefill_32k`` on the 2x16x16 mesh (512).  Each
+             cell's roofline terms; the three qwen3 train profiles go to
+             ``AmoebaController.choose_plan``, which prints its plan.
+10. dist   — the sharded paths (``repro_torch.parallel``): 4 ranks on the
              one card, started with ``torch.multiprocessing`` in the spawn
              mode, joined by gloo (NCCL refuses two ranks on one device;
              every collective crosses host memory), mesh (data 2, model 2).
@@ -1827,6 +1847,16 @@ TRAIN_WHISPER = (8, 448, 10)
 TRAIN_FAILS = (5, 8)
 
 
+def _tail_projection(keys):
+    """The key suffix of the last matmul a block's forward runs: the FFN's
+    down projection; with MoE, that of the dense residual or the shared
+    experts, which ``moe_dense`` adds after the routed experts."""
+    for tail in ("/ffn/dense/wo", "/ffn/shared/wo", "/ffn/wo"):
+        if any(k.endswith(tail) for k in keys):
+            return tail
+    return None
+
+
 def train_flops(cfg, params, B, S):
     """(model FLOPs of one training step, FLOPs executed, the reckoning).
 
@@ -1838,16 +1868,23 @@ def train_flops(cfg, params, B, S):
     counts what runs: every expert on every token (``moe_dense``), the full
     S² the chunked attention computes (4·B·S²·H·hd a layer forward), and
     what activation checkpointing recomputes: each block's forward (2·N·T
-    of all the blocks' parameters and attention's forward once more) and
-    each loss chunk's unembedding (2·N·T of it)."""
+    of the blocks' parameters and attention's forward once more) and each
+    loss chunk's unembedding (2·N·T of it).  torch's checkpoint stops
+    recomputing once the tensors the backward saved are back, so the
+    block's last matmul, whose output no backward reads (the FFN's down
+    projection: ``_tail_projection``), is not recomputed."""
     from repro_torch import pytree
     T_ = B * S
     blocks = [params[k] for k in ("reps", "rest") if k in params]
-    n_blocks = n_routed = 0
-    for key, leaf in pytree.flatten_with_paths(blocks).items():
+    flat = pytree.flatten_with_paths(blocks)
+    tail = _tail_projection(flat)
+    n_blocks = n_routed = n_tail = 0
+    for key, leaf in flat.items():
         n_blocks += leaf.numel()
         if "/experts/" in key:
             n_routed += leaf.numel()
+        if tail is not None and key.endswith(tail):
+            n_tail += leaf.numel()
     share = cfg.moe.top_k / cfg.moe.num_experts if cfg.moe else 1.0
     n_active = n_blocks - n_routed + share * n_routed
     emb = params["embed"]
@@ -1857,7 +1894,8 @@ def train_flops(cfg, params, B, S):
         sum(k == "attn" for k in cfg.layer_kinds)
     model = 6.0 * n_mm * T_ + 3.0 * attn_full / 2
     executed = (6.0 * (n_blocks + n_out) * T_ + 3.0 * attn_full
-                + 2.0 * n_blocks * T_ + attn_full + 2.0 * n_out * T_)
+                + 2.0 * (n_blocks - n_tail) * T_ + attn_full
+                + 2.0 * n_out * T_)
     how = (f"6·N·T = 6 x {n_mm:,.0f} x {T_:,} = {6.0 * n_mm * T_ / 1e12:.2f} "
            f"TFLOP (N: active block parameters {n_active:,.0f}"
            + (f", of which routed experts {share * n_routed:,.0f} = top_k/E "
@@ -1865,7 +1903,9 @@ def train_flops(cfg, params, B, S):
            + f", + unembedding {n_out:,}; the embedding table is a lookup) "
            f"+ causal attention 3 x 2·B·S²·H·hd·L = {1.5 * attn_full / 1e12:.2f}"
            f" TFLOP; executed: all {n_blocks:,} block parameters, the full "
-           f"S² attention, the recomputed blocks 2·N_blocks·T + attention "
+           f"S² attention, the recomputed blocks 2·(N_blocks - N_tail)·T "
+           f"(N_tail: the {n_tail:,} parameters of the blocks' last matmul "
+           f"{tail}, which the checkpoint does not recompute) + attention "
            f"forward and the loss chunks' unembedding 2·N_out·T = "
            f"{executed / 1e12:.2f} TFLOP")
     return model, executed, how
@@ -1895,15 +1935,35 @@ def check_compress_exact(tr, params):
     return len(pytree.leaves(grads)), sorted(shapes)
 
 
-def train_qwen_phase(smi, hw):
+def train_qwen_setup():
+    """(config, shape, TrainConfig) of the qwen3-14b train phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    cfg = get_config("qwen3-14b").replace(num_layers=TRAIN_QWEN_LAYERS)
+    tcfg = TrainConfig(learning_rate=1e-4, warmup_steps=1, total_steps=6,
+                       remat="full", grad_compression=True)
+    return cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"), tcfg
+
+
+def train_deepseek_setup():
+    """(config, shape, TrainConfig) of the deepseek-moe-16b train phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    cfg = get_config("deepseek-moe-16b").replace(
+        num_layers=TRAIN_DEEPSEEK_LAYERS)
+    return (cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            TrainConfig(total_steps=4, warmup_steps=1))
+
+
+def train_qwen_phase(smi, hw, predicted):
     """qwen3-14b at full width (8 of 40 layers), B4 S2048, 6 steps with
     gradient compression: the quantize kernel's rows entry launches once
     per parameter leaf per step, and equals its plain version exactly on
-    one step's gradients."""
+    one step's gradients.  Its first step is counted and held to
+    ``predicted``, the same step counted on ``meta``."""
     import torch
     from repro_torch import pytree
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw as A
@@ -1911,12 +1971,9 @@ def train_qwen_phase(smi, hw):
     from repro_torch.train import Trainer
 
     full = get_config("qwen3-14b")                 # full width, bf16
-    cfg = full.replace(num_layers=TRAIN_QWEN_LAYERS)
-    B, S, steps = TRAIN_BATCH, TRAIN_SEQ, 6
-    tcfg = TrainConfig(learning_rate=1e-4, warmup_steps=1, total_steps=steps,
-                       remat="full", grad_compression=True)
-    tr = Trainer(cfg, ShapeConfig("train", S, B, "train"), tcfg,
-                 device="cuda")
+    cfg, shape, tcfg = train_qwen_setup()
+    B, S, steps = TRAIN_BATCH, TRAIN_SEQ, tcfg.total_steps
+    tr = Trainer(cfg, shape, tcfg, device="cuda")
     assert tr.rt.remat and tr.rt.loss_chunk == 512 and not tr.rt.use_kernels
     t0 = time.perf_counter()
     state = tr.init_state(SEED)
@@ -1927,6 +1984,7 @@ def train_qwen_phase(smi, hw):
     model_flops, executed_flops, how = train_flops(cfg, state.params, B, S)
     resident = torch.cuda.memory_allocated()
     spans = {"compress": [], "adamw": []}
+    counted = count_first_step(tr)
     torch.cuda.reset_peak_memory_stats()
     with call_spans(C, "round_trip_", spans["compress"]), \
             call_spans(A, "adamw_update", spans["adamw"]):
@@ -1934,6 +1992,8 @@ def train_qwen_phase(smi, hw):
         out = tr.train(steps, state=state)
         launches = dict(ops.launches)              # read just after
     peak = torch.cuda.max_memory_allocated()
+    pred = check_prediction("qwen3-14b", *predicted, counted["sc"],
+                            executed_flops, peak, smi)
     hist = out["history"]
     assert [m.step for m in hist] == list(range(steps)), hist
     for m in hist:
@@ -1969,7 +2029,8 @@ def train_qwen_phase(smi, hw):
         param_leaves=n_leaves, quantize_launches=launches["quantize_int8"],
         compress_exact_leaves=leaves, compress_row_shapes=shapes,
         init_s=init_s, resident_gb=resident / 1e9, peak_gb=peak / 1e9,
-        card=smi)
+        predicted_peak_gb=pred["meta_peak_gb"],
+        counted_tflop=pred["card_tflop"], card=smi)
     log("train:qwen3-14b", json.dumps(rec))
     del params
     gc.collect()
@@ -1977,30 +2038,29 @@ def train_qwen_phase(smi, hw):
     return launches
 
 
-def train_deepseek_phase(smi, hw):
+def train_deepseek_phase(smi, hw, predicted):
     """deepseek-moe-16b at full width (4 of 28 layers), B4 S2048, 4 steps
     with the AMOEBA controller fed each step's expert-load divergence
-    (tests/test_runtime.py::test_moe_divergence_telemetry at full width)."""
+    (tests/test_runtime.py::test_moe_divergence_telemetry at full width).
+    Its first step is counted and held to ``predicted``."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import (AmoebaConfig, ShapeConfig,
-                                          TrainConfig)
+    from repro_torch.configs.base import AmoebaConfig
     from repro_torch.core.controller import AmoebaController
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
     from repro_torch.train import Trainer
 
     full = get_config("deepseek-moe-16b")
-    cfg = full.replace(num_layers=TRAIN_DEEPSEEK_LAYERS)
-    B, S, steps = TRAIN_BATCH, TRAIN_SEQ, 4
+    cfg, shape, tcfg = train_deepseek_setup()
+    B, S, steps = TRAIN_BATCH, TRAIN_SEQ, tcfg.total_steps
     ctl = AmoebaController(AmoebaConfig(min_phase_steps=1))
-    tr = Trainer(cfg, ShapeConfig("train", S, B, "train"),
-                 TrainConfig(total_steps=steps, warmup_steps=1),
-                 controller=ctl, device="cuda")
+    tr = Trainer(cfg, shape, tcfg, controller=ctl, device="cuda")
     state = tr.init_state(SEED)
     n_params = T.count_params(state.params)
     model_flops, executed_flops, how = train_flops(cfg, state.params, B, S)
     loads = []
+    counted = count_first_step(tr)
     step = tr.step
 
     def recording(st, batch):
@@ -2015,6 +2075,8 @@ def train_deepseek_phase(smi, hw):
     out = tr.train(steps, state=state)
     launches = dict(ops.launches)                  # read just after
     peak = torch.cuda.max_memory_allocated()
+    pred = check_prediction("deepseek-moe-16b", *predicted, counted["sc"],
+                            executed_flops, peak, smi)
     hist = out["history"]
     assert [m.step for m in hist] == list(range(steps)), hist
     assert all(math.isfinite(m.loss) for m in hist), hist
@@ -2036,7 +2098,8 @@ def train_deepseek_phase(smi, hw):
         model_tflop=model_flops / 1e12, executed_tflop=executed_flops / 1e12,
         reckoning=how, model_tflop_s=model_flops / step_s / 1e12,
         peak_share=model_flops / step_s / hw.peak_flops,
-        peak_gb=peak / 1e9, card=smi)
+        peak_gb=peak / 1e9, predicted_peak_gb=pred["meta_peak_gb"],
+        counted_tflop=pred["card_tflop"], card=smi)
     log("train:deepseek-moe-16b", json.dumps(rec))
     del state, out, loads
     gc.collect()
@@ -2128,6 +2191,216 @@ def train_whisper_phase(smi):
     torch.cuda.empty_cache()
     return launches
 
+
+
+# ---------------------------------------------------------------------------
+# the step counter's prediction of the train phases (dryrun, part b)
+# ---------------------------------------------------------------------------
+
+STEP_PEAK_REL = 0.15               # meta peak against max_memory_allocated
+STEP_FLOPS_REL = 0.02              # counted FLOPs against train_flops
+
+
+def predict_train_step(cfg, shape, tcfg):
+    """One step of the train phase's configuration counted on the ``meta``
+    device (``core.step_count``): nothing allocated, no card."""
+    import torch
+    from repro_torch.core.step_count import StepCounter
+    from repro_torch.train import Trainer
+    tr = Trainer(cfg, shape, tcfg, device="meta")
+    state = tr._restore_template()
+    batch = {"tokens": torch.empty((shape.global_batch, shape.seq_len),
+                                   dtype=torch.long, device="meta")}
+    t0 = time.perf_counter()
+    with StepCounter((state, batch)) as sc:
+        tr.step(state, batch)
+    return sc, time.perf_counter() - t0
+
+
+def count_first_step(tr):
+    """Wrap ``tr.step`` so that its first call runs under a
+    ``StepCounter``; -> a dict that holds the counter after that call."""
+    from repro_torch.core.step_count import StepCounter
+    step, box = tr.step, {}
+
+    def first(st, batch):
+        if "sc" in box:
+            return step(st, batch)
+        with StepCounter((st, batch)) as sc:
+            out = step(st, batch)
+        box["sc"] = sc
+        return out
+
+    tr.step = first
+    return box
+
+
+def check_prediction(name, meta, meta_s, card, executed, peak, smi):
+    """The meta count against the card's count of the same step (FLOPs
+    equal), ``train_flops``' executed reckoning (2 %) and the card's
+    ``max_memory_allocated`` (15 %)."""
+    rec = dict(
+        meta_tflop=meta.flops / 1e12, card_tflop=card.flops / 1e12,
+        executed_tflop=executed / 1e12,
+        flops_rel=meta.flops / executed - 1.0,
+        meta_peak_gb=meta.peak_bytes / 1e9, card_peak_gb=peak / 1e9,
+        peak_rel=meta.peak_bytes / peak - 1.0,
+        card_counted_peak_gb=card.peak_bytes / 1e9,
+        meta_arg_gb=meta.arg_bytes / 1e9,
+        meta_hbm_gb=meta.hbm_bytes / 1e9, card_hbm_gb=card.hbm_bytes / 1e9,
+        meta_trace_s=meta_s, card=smi)
+    log(f"dryrun:predict:{name}", json.dumps(rec))
+    assert meta.flops == card.flops, (name, meta.flops, card.flops)
+    assert abs(rec["flops_rel"]) <= STEP_FLOPS_REL, (name, rec)
+    assert abs(rec["peak_rel"]) <= STEP_PEAK_REL, (name, rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# gpusim: the paper's simulator (host numpy, no device work)
+# ---------------------------------------------------------------------------
+
+def _geomean(xs) -> float:
+    return float(math.exp(statistics.fmean(math.log(x) for x in xs)))
+
+
+def gpusim_phase():
+    """Every scheme of ``SCHEMES`` over the 12 workloads through the port's
+    gpusim; the Fig 12 speedups over ``baseline`` held to
+    tests/test_gpusim.py's ranges."""
+    from repro_torch.core.gpusim import SCHEMES, WORKLOADS, run_all
+    from repro_torch.core.gpusim.sim import FUSED, QSPLIT
+    t0 = time.perf_counter()
+    res = {s: run_all(s) for s in SCHEMES}
+    wall = time.perf_counter() - t0
+    base = res["baseline"]
+
+    def speedups(scheme):
+        return {n: res[scheme][n].ipc / base[n].ipc for n in WORKLOADS}
+
+    sp = {s: speedups(s) for s in SCHEMES if s != "baseline"}
+    wr, dws, su, st = (sp["warp_regroup"], sp["dws"], sp["scale_up"],
+                       sp["static_fuse"])
+    geo = {s: _geomean(v.values()) for s, v in sp.items()}
+    over_dws = _geomean(wr[n] / dws[n] for n in WORKLOADS)
+    tr = res["warp_regroup"]["RAY"].trace
+    both = float(((tr == FUSED).any(axis=1)
+                  & (tr == QSPLIT).any(axis=1)).mean())
+    rec = dict(
+        sm=wr["SM"], mum=wr["MUM"], geomean=geo,
+        amoeba_over_dws=over_dws, sm_over_dws=wr["SM"] / dws["SM"],
+        static_choice={n: {"scale_up": su[n], "static_fuse": st[n]}
+                       for n in ("CP", "3MM")},
+        ray_both_states_share=both, wall_s=wall)
+    log("gpusim (host numpy, no device work)", json.dumps(rec))
+    assert 3.8 <= wr["SM"] <= 4.8, wr["SM"]
+    assert 1.8 <= wr["MUM"] <= 2.5, wr["MUM"]
+    assert 1.30 <= geo["warp_regroup"] <= 1.60, geo
+    assert geo["warp_regroup"] >= geo["direct_split"] \
+        >= geo["static_fuse"] - 1e-9, geo
+    assert geo["warp_regroup"] > geo["dws"], geo
+    assert over_dws > 1.2 and wr["SM"] / dws["SM"] > 3.5, rec
+    for n in ("CP", "3MM"):
+        assert su[n] < 1.0 and st[n] >= su[n], (n, su[n], st[n])
+    for n in ("FWT", "KM"):
+        assert abs(wr[n] - 1.0) < 0.1, (n, wr[n])
+    assert both > 0.2, both
+    assert res["warp_regroup"]["SM"].l1d_miss < 0.5 * base["SM"].l1d_miss
+    for n in ("SM", "MUM"):
+        assert res["warp_regroup"][n].actual_mem_rate < \
+            base[n].actual_mem_rate, n
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# dryrun, part a: mesh cells on fake groups, in a child process
+# ---------------------------------------------------------------------------
+
+# (arch, shape, multi-pod, plan): qwen3-14b's train step under the three
+# plans of the 16x16 family, deepseek's decode, qwen3's 32k prefill on the
+# 2x16x16 mesh (512 ranks)
+DRYRUN_CELLS = (("qwen3-14b", "train_4k", False, "base"),
+                ("qwen3-14b", "train_4k", False, "fused"),
+                ("qwen3-14b", "train_4k", False, "scale_out"),
+                ("deepseek-moe-16b", "decode_32k", False, "base"),
+                ("qwen3-14b", "prefill_32k", True, "base"))
+DRYRUN_CHILD = r"""
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun
+t0 = time.perf_counter()
+for arch, shape, multi_pod, plan in json.loads(sys.argv[1]):
+    art = dryrun.run_cell(arch, shape, multi_pod=multi_pod, plan_name=plan,
+                          out_dir=sys.argv[2], verbose=False)
+    print("CELL " + json.dumps(art), flush=True)
+assert "jax" not in sys.modules and not torch.cuda.is_initialized()
+print("WALL %r" % (time.perf_counter() - t0), flush=True)
+"""
+
+
+def start_dryrun_cells():
+    """Start the mesh cells' child now: its ``fake`` process group must
+    not share a process with the dist phase's gloo groups, and it needs
+    only the host, so it runs while the card works.  No card is visible
+    to it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD, json.dumps(DRYRUN_CELLS),
+         str(ROOT / "build" / "dryrun_torch")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def dryrun_cells_phase(proc, smi):
+    """Read the mesh cells' artifacts, print each profile's roofline
+    terms, and feed the three qwen3-14b train profiles to
+    ``AmoebaController.choose_plan`` as benchmarks/mesh_amoeba.py feeds the
+    reference's artifacts."""
+    from repro_torch.configs.base import AmoebaConfig
+    from repro_torch.core.controller import AmoebaController
+    from repro_torch.core.metrics import StepProfile
+    t0 = time.perf_counter()
+    out, _ = proc.communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    assert proc.returncode == 0, out[-6000:]
+    lines = out.splitlines()
+    arts = [json.loads(x[5:]) for x in lines if x.startswith("CELL ")]
+    child_s = [float(x[5:]) for x in lines if x.startswith("WALL ")]
+    assert len(arts) == len(DRYRUN_CELLS) and len(child_s) == 1, out[-6000:]
+    for a, (arch, shape, multi_pod, plan) in zip(arts, DRYRUN_CELLS):
+        assert (a["arch"], a["shape"], a["plan"]) == (arch, shape, plan), a
+        assert a["chips"] == (512 if multi_pod else 256), a
+        assert a["flops_per_device"] > 0 and a["hbm_bytes_per_device"] > 0
+        assert a["collective_bytes_per_device"] > 0, a["collective_breakdown"]
+        assert a["peak_bytes_per_device"] > a["argument_size_in_bytes"] > 0
+        r = a["roofline"]
+        log(f"dryrun:{arch}:{shape}:{a['mesh']}", json.dumps(dict(
+            plan=plan, chips=a["chips"], kind=a["kind"],
+            tflop_per_device=a["flops_per_device"] / 1e12,
+            hbm_gb_per_device=a["hbm_bytes_per_device"] / 1e9,
+            coll_gb_per_device=a["collective_bytes_per_device"] / 1e9,
+            coll_gb={k: v / 1e9 for k, v in a["collective_breakdown"].items()},
+            peak_gb_per_device=a["peak_bytes_per_device"] / 1e9,
+            compute_s=r["compute_s"], memory_s=r["memory_s"],
+            collective_s=r["collective_s"], bottleneck=r["bottleneck"],
+            trace_s=a["trace_s"])))
+    profiles = {a["plan"]: StepProfile(
+        name=f"{a['arch']}/{a['shape']}", flops=a["flops_per_device"],
+        hbm_bytes=a["hbm_bytes_per_device"],
+        coll_bytes=a["collective_bytes_per_device"], chips=a["chips"],
+        model_flops=a["model_flops"])
+        for a in arts if (a["arch"], a["shape"]) == ("qwen3-14b", "train_4k")}
+    assert sorted(profiles) == ["base", "fused", "scale_out"], profiles
+    d = AmoebaController(AmoebaConfig()).choose_plan(
+        profiles, param_bytes_per_chip=1e8, steps_remaining=1e5)
+    steps = {k: p.roofline()["step_s"] for k, p in profiles.items()}
+    log("dryrun:plan:qwen3-14b:train_4k", json.dumps(dict(
+        chosen=d.plan, reason=d.reason, step_s=steps,
+        speedup=steps["base"] / steps[d.plan], child_wall_s=child_s[0],
+        waited_s=waited, card=smi)))
+    assert d.plan in profiles
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -2627,13 +2900,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.configs.base import H100
-    from repro_torch.kernels import _build
 
     smi = smi_line()
     log("card:", smi, "| torch", torch.__version__, "cuda", torch.version.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cells = start_dryrun_cells()
+    try:
+        return run_phases(torch, smi, cells)
+    finally:
+        if cells.poll() is None:
+            cells.kill()
+            cells.wait()
+
+
+def run_phases(torch, smi, cells) -> int:
+    from repro_torch.configs.base import H100
+    from repro_torch.kernels import _build
 
     t = time.perf_counter()
     _build.build_all()
@@ -2671,11 +2954,19 @@ def main() -> int:
     log(f"parity: {time.perf_counter() - t:.1f} s")
     released(0)
     t = time.perf_counter()
-    by_phase["train:qwen3-14b"] = train_qwen_phase(smi, H100)
-    by_phase["train:deepseek-moe-16b"] = train_deepseek_phase(smi, H100)
+    by_phase["train:qwen3-14b"] = train_qwen_phase(
+        smi, H100, predict_train_step(*train_qwen_setup()))
+    by_phase["train:deepseek-moe-16b"] = train_deepseek_phase(
+        smi, H100, predict_train_step(*train_deepseek_setup()))
     by_phase["train:whisper-base"] = train_whisper_phase(smi)
     log(f"train: {time.perf_counter() - t:.1f} s")
     released(0)
+    t = time.perf_counter()
+    gpusim_phase()
+    log(f"gpusim: {time.perf_counter() - t:.1f} s (host)")
+    t = time.perf_counter()
+    dryrun_cells_phase(cells, smi)
+    log(f"dryrun: {time.perf_counter() - t:.1f} s (waiting for the child)")
     t = time.perf_counter()
     by_phase.update(dist_phase(smi))
     log(f"dist: {time.perf_counter() - t:.1f} s")

@@ -7,7 +7,7 @@ tick: how divergent the decode batch is, how deep the admission queue is,
 how fast work is arriving, and how spread-out the remaining lengths are.
 Every policy in :mod:`repro.control.policies` consumes the same
 :class:`FeatureVector`; the gpusim level keeps its own 11-metric vector
-(``repro.core.gpusim.sim.FEATURE_NAMES``) but flows through the same
+(``repro_torch.core.gpusim.sim.FEATURE_NAMES``) but flows through the same
 policy objects.
 """
 from __future__ import annotations

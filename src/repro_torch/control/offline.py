@@ -1,8 +1,8 @@
 """Offline corpus for the serve-level scalability predictor.
 
 The paper trains its logistic model on "a large amount of offline
-experimental data" from the simulator (the reference's gpusim corpus
-keeps that path; not ported yet).  The serving analogue generates
+experimental data" from the simulator (that path is
+:mod:`repro_torch.core.gpusim.corpus`).  The serving analogue generates
 decision scenarios — batches with bimodal / lognormal / near-lockstep remaining-length profiles under
 varying queue pressure — and labels each with the realized win: does the
 best k-way partition of this batch save more slot-steps than the

@@ -5,9 +5,9 @@ memory bytes, collective bytes, peak memory, MoE or length divergence) and
 its three bounds (compute, memory, interconnect) against a card's peaks,
 with the port's ``H100`` as the default hardware where the reference
 defaults to the TPU v5e.  ``collective_bytes`` parses HLO text, as the
-reference's does.  ``profile_from_compiled`` reads XLA's compiled
-artifacts and waits for ``hlo_analysis`` (the gpusim / HLO analysis /
-dry-run item of ROADMAP queue 1).
+reference's does.  The counterpart of ``profile_from_compiled``, which
+reads XLA's compiled artifacts, is ``core.step_count.profile_from_step``:
+the port compiles no HLO, so it counts one eager step op by op.
 """
 from __future__ import annotations
 

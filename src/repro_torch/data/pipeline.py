@@ -8,8 +8,8 @@ inputs: precomputed audio-frame embeddings for whisper and patch
 embeddings for the VLM.  The iterator state is one integer, so
 checkpoint/restore is exact: restoring step k regenerates batch k
 bit-identically on any host count (each host slices its own rows from the
-global batch by index).  The dry-run's ``make_batch_specs`` waits for
-the gpusim / HLO analysis / dry-run item of ROADMAP queue 1.
+global batch by index).  ``make_batch_specs`` gives the dry-run's
+inputs as ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
@@ -77,3 +78,23 @@ class SyntheticLM:
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def make_batch_specs(model: ModelConfig, shape: ShapeConfig,
+                     cfg: DataConfig = DataConfig(),
+                     dtype: str = "bfloat16") -> Dict[str, torch.Tensor]:
+    """``meta`` stand-ins for every model input (dry-run path): the
+    reference's keys, shapes and dtypes, nothing allocated."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    specs = {"tokens": torch.empty((B, S), dtype=torch.int32, device=meta)}
+    if model.encoder_layers:
+        specs["audio_embeds"] = torch.empty(
+            (B, cfg.enc_frames, model.d_model), dtype=getattr(torch, dtype),
+            device=meta)
+    if model.vision_stub:
+        n_vis = min(model.max_vision_tokens, S)
+        specs["vision_embeds"] = torch.empty(
+            (B, n_vis, model.d_model), dtype=getattr(torch, dtype),
+            device=meta)
+    return specs

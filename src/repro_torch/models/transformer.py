@@ -292,6 +292,17 @@ def _seq_sharded(rt: Runtime) -> bool:
     return rt.seq_shard and shardctx.axis_size("model") > 1
 
 
+def _stream_rt(rt: Runtime, seq_len: int) -> Runtime:
+    """``rt`` for a residual stream of ``seq_len`` positions: ``seq_shard``
+    off where the model axis does not divide it (whisper's 1500 frames on
+    16 model ranks), so that stream stays whole on every model rank.  Each
+    sublayer computes on the whole sequence either way; the reference's
+    GSPMD pads the uneven shards instead."""
+    if _seq_sharded(rt) and seq_len % shardctx.axis_size("model"):
+        return rt._replace(seq_shard=False)
+    return rt
+
+
 def _seq_scatter(y: torch.Tensor) -> torch.Tensor:
     """This rank's S chunk over 'model' (y is whole on every model rank)."""
     n = shardctx.axis_size("model")
@@ -552,6 +563,8 @@ def encode(params, enc_in: torch.Tensor, cfg: ModelConfig,
     The reference's ``lax.scan`` over the stacked ``params["encoder"]``
     becomes a loop over its leading axis.
     """
+    rt = _stream_rt(rt, enc_in.shape[1])
+
     def one(p, x):
         return block_forward(p, x, None, None, cfg, "attn", rt,
                              causal=False)[0]
@@ -583,6 +596,7 @@ def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
     gathered after the last.
     """
     pattern = _pattern(cfg)
+    rt = _stream_rt(rt, x.shape[1])
     aux = _zero_aux(cfg, x.device)
     caches_rep, caches_rest = None, None
     remat = rt.remat and not build_cache

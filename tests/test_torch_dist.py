@@ -28,7 +28,12 @@ weights (``bridge``) and inputs:
   block is whole rows and where it would cut one;
 * the elastic restore: the compressed trainer's final state saved on the
   (2, 2) plan restores onto the fused (1, 4) and scale_out (4, 1) plans,
-  every leaf equal.
+  every leaf equal;
+* the dry-run's count of its train cell: rank 0 counts one step with
+  ``core.step_count``, and a fifth child, started beside the four, counts
+  the same cell on a ``fake`` group of 4 on the ``meta`` device
+  (``launch.dryrun.build_cell``): FLOPs, bytes and collective bytes by kind
+  equal exactly.
 """
 import dataclasses
 import json
@@ -129,6 +134,19 @@ for name, comp, seq in (("plain", False, True), ("compress", True, False)):
     res = tr.train(3, state=state)
     out["train_" + name] = [[m.loss, m.grad_norm] for m in res["history"]]
 
+# the dry-run's train cell on this mesh: rank 0 counts one step
+from repro_torch.core.step_count import StepCounter
+from repro_torch.launch import dryrun
+tr = dryrun.cell_trainer(cfg2, shape, mesh, "cpu")
+cstate = tr.init_state(0)
+cbatch = tr.place_batch(tr.data.batch_at(0))
+with StepCounter((cstate, cbatch)) as sc:
+    tr.step(cstate, cbatch)
+out["count"] = {"flops": sc.flops, "hbm": sc.hbm_bytes,
+                "coll": sc.coll_breakdown, "peak": sc.peak_bytes,
+                "args": sc.arg_bytes, "ops": sc.ops}
+del cstate, cbatch, sc
+
 # the elastic restore of the last state onto the other plans
 state = res["state"]
 ckpt = CheckpointManager(os.path.join(D, "ckpt"))
@@ -182,6 +200,30 @@ assert not out["jax_imported"]
 with open(os.path.join(D, f"rank{rank}.json"), "w") as f:
     json.dump(out, f)
 torch.distributed.destroy_process_group()
+"""
+
+
+# the same cell on a fake group of the mesh's size, on the meta device
+FAKE_CHILD = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.fusion import MeshPlan
+from repro_torch.core.step_count import StepCounter
+from repro_torch.launch import dryrun
+cfg = get_config("qwen3-14b", reduced=True).replace(dtype="float32")
+mesh = dryrun._join_fake_group(MeshPlan("base", data=2, model=2))
+fn, args = dryrun.build_cell(cfg, ShapeConfig("t", 32, 4, "train"), mesh)
+with StepCounter(args) as sc:
+    fn(*args)
+dist.destroy_process_group()
+assert "jax" not in sys.modules
+print(json.dumps({"flops": sc.flops, "hbm": sc.hbm_bytes,
+                  "coll": sc.coll_breakdown, "peak": sc.peak_bytes,
+                  "args": sc.arg_bytes, "ops": sc.ops}))
 """
 
 
@@ -246,6 +288,11 @@ def run(tmp_path_factory):
             [sys.executable, "-c", CHILD], env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
 
+    fake = subprocess.Popen(
+        [sys.executable, "-c", FAKE_CHILD], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1"))
+
     # the oracles, while the children run
     rt = JT.Runtime(production=False, remat=False)
     oracle = {"moe": float(JT.loss_fn(mp, {"tokens": mtok}, mcfg, rt)[0])}
@@ -269,6 +316,9 @@ def run(tmp_path_factory):
             raise
     for r, p in enumerate(procs):
         assert p.returncode == 0, f"rank {r}:\n{logs[r][-6000:]}"
+    fake_log = fake.communicate(timeout=600)[0]
+    assert fake.returncode == 0, fake_log[-6000:]
+    oracle["fake_count"] = json.loads(fake_log.strip().splitlines()[-1])
     outs = []
     for r in range(WORLD):
         with open(os.path.join(d, f"rank{r}.json")) as f:
@@ -343,3 +393,18 @@ def test_elastic_restore_onto_other_plans(run):
             assert r["mesh"] == want_mesh
             assert r["equal"] == r["leaves"] > 0, r
             assert len(r["local_shapes"]) > 1, r
+
+
+def test_fake_group_counts_equal_a_gloo_rank(run):
+    """The dry-run's count of a train cell on a fake group (meta tensors,
+    collectives that move nothing) equals rank 0's count of the same step
+    on this gloo mesh, exactly."""
+    oracle, outs = run
+    want = oracle["fake_count"]
+    got = outs[0]["count"]
+    assert got["flops"] == want["flops"] > 0
+    assert got["hbm"] == want["hbm"] > 0
+    assert got["coll"] == want["coll"]
+    assert got["coll"]["all-gather"] > 0 and got["coll"]["all-reduce"] > 0
+    assert got["ops"] == want["ops"]
+    assert got["args"] == want["args"] and got["peak"] == want["peak"]
