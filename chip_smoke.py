@@ -126,7 +126,10 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              plans (256 ranks), deepseek-moe-16b ``decode_32k`` (256) and
              qwen3-14b ``prefill_32k`` on the 2x16x16 mesh (512).  Each
              cell's roofline terms; the three qwen3 train profiles go to
-             ``AmoebaController.choose_plan``, which prints its plan.
+             ``AmoebaController.choose_plan``, which prints its plan.  The
+             two serving cells print their per-device FLOPs beside the
+             count before the tensor-parallel serving path
+             (``DRYRUN_BEFORE_TP``), which they must fall below.
 10. dist   — the sharded paths (``repro_torch.parallel``): 4 ranks on the
              one card, started with ``torch.multiprocessing`` in the spawn
              mode, joined by gloo (NCCL refuses two ranks on one device;
@@ -138,12 +141,22 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              over 'data', capacity factor 8) with the kernels, against
              ``moe_dense`` on one rank: the loss within the path-parity
              bound, no token dropped, the loads within 1e-3.
-             ``dist:decode``: qwen3-14b at full width, 4 layers, B8, 512-
-             token prompts, a 2304-slot ring S-sharded over 'model' (1152
-             slots a rank), bf16 and int8 caches, prefill and 8 decode steps
-             fed the unsharded run's greedy tokens: every step's logits
-             within the path-parity bound; the int8 store is the kernel on
-             each shard (one launch a layer a call).  ``dist:train``:
+             ``dist:decode`` (mesh (2, 2)) and ``dist:decode_fused`` ((1,
+             4)): the tensor-parallel serving path, qwen3-14b at full
+             width, 4 layers, B8, 512-token prompts, weights laid out over
+             'model' by their specs (each data rank a replica), a 2304-slot
+             ring S-sharded over 'model' (1152 / 576 slots a rank), bf16
+             and int8 caches, prefill and 8 decode steps fed the unsharded
+             run's greedy tokens: every step's logits within the
+             path-parity bound; the int8 store is the kernel on each shard
+             (one launch a layer a call), flash runs on the rank's heads
+             (20 / 4 and 10 / 2).  Then one prefill and decode step on the
+             plain path is counted (``core.step_count``) on every rank:
+             its matmul FLOPs a quarter of the unsharded whole batch's
+             (counted on ``meta``) within 2 %, its collective bytes by
+             kind; layer 0's weights and both tables as the path takes
+             them at the spec's share (``d / n_model`` of each split
+             leaf), the resident bytes at the spec share.  ``dist:train``:
              qwen3-14b at full width, 2 layers, B4 S512, 2 steps with remat
              and int8 gradient compression on the global leaves' rows,
              against ``Trainer()`` on one rank: losses within 0.02, grad
@@ -2324,6 +2337,12 @@ DRYRUN_CELLS = (("qwen3-14b", "train_4k", False, "base"),
                 ("qwen3-14b", "train_4k", False, "scale_out"),
                 ("deepseek-moe-16b", "decode_32k", False, "base"),
                 ("qwen3-14b", "prefill_32k", True, "base"))
+# the serving cells' per-device TFLOP on the tree before the tensor-parallel
+# serving path (each rank computed whole layers on its rows): PR 22's
+# ``launch/dryrun.py`` counting the same cells on a CPU (the count depends on
+# shapes alone)
+DRYRUN_BEFORE_TP = {("deepseek-moe-16b", "decode_32k"): 0.024377294848,
+                    ("qwen3-14b", "prefill_32k"): 1841.68353234944}
 DRYRUN_CHILD = r"""
 import json, sys, time
 import torch
@@ -2385,6 +2404,14 @@ def dryrun_cells_phase(proc, smi):
             compute_s=r["compute_s"], memory_s=r["memory_s"],
             collective_s=r["collective_s"], bottleneck=r["bottleneck"],
             trace_s=a["trace_s"])))
+        before = DRYRUN_BEFORE_TP.get((arch, shape))
+        if before is not None:
+            # the serving cells: prefill and decode now tensor-parallel
+            now = a["flops_per_device"] / 1e12
+            log(f"dryrun:tp:{arch}:{shape}", json.dumps(dict(
+                tflop_per_device=now, before_tp_tflop=before,
+                change=now / before - 1, card=smi)))
+            assert now < before, (arch, shape, now, before)
     profiles = {a["plan"]: StepProfile(
         name=f"{a['arch']}/{a['shape']}", flops=a["flops_per_device"],
         hbm_bytes=a["hbm_bytes_per_device"],
@@ -2412,6 +2439,15 @@ DIST_RANKS = DIST_MESH[0] * DIST_MESH[1]
 DIST_MOE = (2, 4, 512)             # deepseek-moe-16b: layers, B, S
 DIST_DECODE = (4, 8, 512, 2304, 8)  # qwen3-14b: layers, B, prompt, window,
 #                                     decode steps
+# the tensor-parallel serving legs: the decode leg's run on each (data,
+# model) mesh, by leg name
+DIST_TP = (("decode", (2, 2)), ("decode_fused", (1, 4)))
+# every TP leaf's FLOPs on a rank: the whole batch's over data x model
+TP_FLOPS_REL = 0.02
+# the leaves qwen3-14b's specs split over 'model' on 2 and 4 model ranks
+# (8 KV heads: wk / wv too), by their path in layer 0 and the tables
+TP_SPLIT = ("mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo", "ffn/wi_gate",
+            "ffn/wi_up", "ffn/wo", "embed/table", "embed/out")
 # qwen3-14b: layers, B, S, steps (2, not 3: a step moves ~14 GB a rank
 # through host memory, ~30 s on this layout)
 DIST_TRAIN = (2, 4, 512, 2)
@@ -2492,6 +2528,11 @@ def dist_references(d):
                       dropped=float(met["dropped_frac"]))
     del params
     L, B, S, W, steps = DIST_DECODE
+    # the unsharded whole batch's count of the TP legs' counted call
+    # (prefill + one decode step, plain path), on ``meta``
+    ref["decode_count"] = _tp_count(
+        T.init_model(dec_cfg, torch.Generator(), "meta"),
+        torch.empty((B, S), dtype=torch.long, device="meta"), dec_cfg)
     params = T.init_model(dec_cfg, torch.Generator("cuda").manual_seed(SEED),
                           "cuda")
     prompts = _dist_tokens(dec_cfg, B, S, 8).cuda()
@@ -2518,6 +2559,53 @@ def dist_references(d):
     gc.collect()
     torch.cuda.empty_cache()
     return ref
+
+
+def _tp_count(params, prompts, cfg) -> dict:
+    """``core.step_count`` of one prefill and one decode step of the
+    decode legs' configuration on the plain path (chunked attention is
+    torch matmuls; the flash kernel is no aten op and would not count),
+    under the current mesh, if any: matmul FLOPs, collective bytes by
+    kind, FLOPs by aten op."""
+    import torch
+    from repro_torch.core.step_count import StepCounter
+    from repro_torch.models import transformer as T
+    rt = T.Runtime(use_kernels=False)
+    with torch.no_grad(), StepCounter((params, prompts)) as sc:
+        logits, st = T.prefill(params, {"tokens": prompts}, cfg, rt,
+                               window=DIST_DECODE[3])
+        T.decode_step(params, st, logits.argmax(-1, keepdim=True), cfg, rt)
+    return dict(flops=sc.flops, coll=dict(sc.coll_breakdown),
+                by_op=dict(sc.flops_by_op))
+
+
+def _tp_weights(params, cfg, mesh) -> dict:
+    """Each TP leaf's bytes as layer 0's tensor-parallel serving path takes
+    them on this rank (``_tp_block_params``, ``_serving_table``), beside the
+    whole leaf's: {path: [mine, whole]}."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import shardctx
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+    with shardctx.use_mesh(mesh):
+        blk = T._index(params["reps"][0], 0)
+        w, tp = T._tp_block_params(blk, cfg, "attn")
+        assert tp == {"mixer": True, "ffn": True}, tp
+        out = {f"{sub}/{k}": [nbytes(v), nbytes(blk[sub][k])]
+               for sub in ("mixer", "ffn") for k, v in w[sub].items()}
+        for k in ("table", "out"):
+            out["embed/" + k] = [nbytes(T._serving_table(params, cfg, k,
+                                                         True)[0]),
+                                 nbytes(params["embed"][k])]
+    return out
+
+
+def _model_only(specs):
+    """The specs with 'data' dropped: weights split over 'model' as the
+    reference's specs split them, each data rank a whole replica."""
+    from repro_torch import pytree
+    from repro_torch.parallel.shardctx import P
+    return pytree.map_(lambda s: P(*(None if e == "data" else e
+                                     for e in s)), specs)
 
 
 def _share(tree) -> int:
@@ -2621,19 +2709,41 @@ def _dist_rank(d, res):
                     resident_bytes=resident, share_bytes=share,
                     whole_bytes=whole_b)
 
-    def decode_leg():
+    def decode_leg(shape):
+        """The tensor-parallel serving path on a (data, model) mesh: the
+        weights laid out over 'model' by their specs (each data rank a
+        replica: an FSDP gather over 'data' would move every layer through
+        gloo's host staging each call), prefill and greedy decode held to
+        the unsharded run, then one prefill and decode step counted."""
         L, B, S, W, steps = DIST_DECODE
-        params = T.init_model(dec_cfg, gen(), "cuda")   # replicated weights
-        rows = slice(res["data"] * B // DIST_MESH[0],
-                     (res["data"] + 1) * B // DIST_MESH[0])
+        m = (mesh if shape == DIST_MESH else
+             MeshPlan("tp", data=shape[0], model=shape[1]).build("cuda"))
+        n = shape[1]
+        d = m.get_local_rank("data")
+        shapes, specs = T.model_pspecs(dec_cfg)
+        specs = _model_only(specs)
+        flat = pytree.flatten_with_paths(specs)
+        with shardctx.use_mesh(m):
+            spec_share = sum(
+                _share(v) // (1 if shardctx.model_dim(v, flat[k]) is None
+                              else n)
+                for k, v in pytree.flatten_with_paths(shapes).items())
+        whole = T.init_model(dec_cfg, gen(), "cuda")
+        params = shardctx.layout_tree(whole, specs, m)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        rows = slice(d * B // shape[0], (d + 1) * B // shape[0])
         prompts = shardctx.batch_shard(_dist_tokens(dec_cfg, B, S, 8),
-                                       mesh).cuda()
-        out = {}
+                                       m).cuda()
+        out = dict(mesh=list(shape))
+        t0 = time.perf_counter()
         for quant in (False, True):
             r = ref[f"decode_q{int(quant)}"]
             rt = T.Runtime(use_kernels=True, kv_quant=quant)
             diffs, limits = [], []
-            with torch.no_grad(), shardctx.use_mesh(mesh):
+            with torch.no_grad(), shardctx.use_mesh(m):
                 logits, st = T.prefill(params, {"tokens": prompts}, dec_cfg,
                                        rt, window=W)
                 k0 = st.reps[0]["self"].k
@@ -2651,8 +2761,14 @@ def _dist_rank(d, res):
             del st
             out[f"q{int(quant)}"] = dict(diff=diffs, limit=limits,
                                          ring_slots=ring, cache_bytes=cache_b)
-        out["resident_bytes"] = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        with shardctx.use_mesh(m):
+            out["count"] = _tp_count(params, prompts, dec_cfg)
+        out["weights"] = _tp_weights(params, dec_cfg, m)
+        out["resident_bytes"] = resident
         out["share_bytes"] = _share(params)
+        out["spec_share_bytes"] = spec_share
         return out
 
     def train_leg():
@@ -2753,9 +2869,12 @@ def _dist_rank(d, res):
             out[n].update(equal=e, leaves=out["leaves"])
         return out
 
-    for name, fn in (("moe", moe_leg), ("decode", decode_leg),
-                     ("train", train_leg), ("compress", compress_leg),
-                     ("restore", restore_leg)):
+    legs = [("moe", moe_leg)]
+    legs += [(name, lambda shape=shape: decode_leg(shape))
+             for name, shape in DIST_TP]
+    legs += [("train", train_leg), ("compress", compress_leg),
+             ("restore", restore_leg)]
+    for name, fn in legs:
         _leg(name, fn, res)
     dist.barrier()
     dist.destroy_process_group()
@@ -2773,6 +2892,7 @@ def dist_phase(smi):
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
     ref = dist_references(d)
+    whole = ref["decode_count"]     # the TP legs' unsharded count
     del ref
     released(0)
     ctx = mp.get_context("spawn")
@@ -2800,21 +2920,55 @@ def dist_phase(smi):
     assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
     outs.sort(key=lambda o: o["rank"])
     by_path, recs = {}, {}
-    for leg in ("moe", "decode", "train", "compress", "restore"):
+    tp_legs = [name for name, _ in DIST_TP]
+    for leg in ["moe"] + tp_legs + ["train", "compress", "restore"]:
         per = [o[leg] for o in outs]
         by_path[f"dist:{leg}"] = {k: sum(p["launches"][k] for p in per)
                                   for k in per[0]["launches"]}
         recs[leg] = per
-    moe, dec, tr, cmp_, rst = (recs[k] for k in ("moe", "decode", "train",
-                                                 "compress", "restore"))
+    moe, tr, cmp_, rst = (recs[k] for k in ("moe", "train", "compress",
+                                            "restore"))
     for p in moe:
         assert p["diff"] <= p["limit"], p
         assert p["dropped"] == 0.0 and p["load_diff"] <= DIST_LOAD_TOL, p
-    for p in dec:
-        for q_ in ("q0", "q1"):
-            assert all(a <= b for a, b in zip(p[q_]["diff"], p[q_]["limit"])), p
-            assert p[q_]["ring_slots"] == (DIST_DECODE[3],
-                                           DIST_DECODE[3] // DIST_MESH[1]), p
+    tp_lines = {}
+    for (leg, shape), dec in zip(DIST_TP, (recs[k] for k in tp_legs)):
+        n = shape[1]
+        for p in dec:
+            for q_ in ("q0", "q1"):
+                assert all(a <= b for a, b in zip(p[q_]["diff"],
+                                                   p[q_]["limit"])), p
+                assert p[q_]["ring_slots"] == (DIST_DECODE[3],
+                                               DIST_DECODE[3] // n), p
+            # each rank computes a quarter of the whole batch's matmuls:
+            # its rows (1 / data) of its heads, columns and vocabulary
+            # (1 / model)
+            ratio = p["count"]["flops"] / whole["flops"]
+            assert abs(ratio * DIST_RANKS - 1) <= TP_FLOPS_REL, (leg, ratio)
+            for k, (mine, full) in p["weights"].items():
+                assert mine * (n if k in TP_SPLIT else 1) == full, (leg, k)
+            assert p["share_bytes"] == p["spec_share_bytes"], p
+        tp_lines[leg] = dict(
+            mesh=list(shape), rank_flops=[p["count"]["flops"] for p in dec],
+            whole_batch_flops=whole["flops"],
+            ratio=[p["count"]["flops"] / whole["flops"] for p in dec],
+            rank_flops_by_op=dec[0]["count"]["by_op"],
+            whole_flops_by_op=whole["by_op"],
+            coll_bytes=[p["count"]["coll"] for p in dec],
+            gathered_bytes=[sum(m for m, _ in p["weights"].values())
+                            for p in dec],
+            gathered_whole_bytes=sum(f for _, f in
+                                     dec[0]["weights"].values()),
+            gathered_by_leaf=dec[0]["weights"],
+            resident_bytes=[p["resident_bytes"] for p in dec],
+            share_bytes=[p["share_bytes"] for p in dec],
+            spec_share_bytes=[p["spec_share_bytes"] for p in dec],
+            max_diff={q_: max(max(p[q_]["diff"]) for p in dec)
+                      for q_ in ("q0", "q1")},
+            min_limit={q_: min(min(p[q_]["limit"]) for p in dec)
+                       for q_ in ("q0", "q1")},
+            run_s=[p["run_s"] for p in dec], card=smi)
+        log(f"dist:{leg}:tp", json.dumps(tp_lines[leg]))
     for p in tr:
         assert p["diff"] <= p["limit"] and p["norm_rel"] <= p["norm_limit"], p
     for p in cmp_:
@@ -2825,6 +2979,7 @@ def dist_phase(smi):
             assert p[name]["equal"] == p[name]["leaves"] == p["leaves"], p
     L = DIST_DECODE[0]
     # every kernel of each leg's path launched, on every rank
+    dec = [p for k in tp_legs for p in recs[k]]
     assert all(p["launches"]["flash_attention"] == DIST_MOE[0] for p in moe)
     assert all(p["launches"]["rmsnorm"] > 0 for p in moe + dec)
     assert all(p["launches"]["quantize_int8"] == L * (1 + DIST_DECODE[4])
@@ -2848,18 +3003,22 @@ def dist_phase(smi):
                  whole_bytes=moe[0]["whole_bytes"],
                  wall_s=[p["wall_s"] for p in moe],
                  peak_gb=[p["peak_gb"] for p in moe]),
-        decode={q_: dict(max_diff=max(max(p[q_]["diff"]) for p in dec),
-                         min_limit=min(min(p[q_]["limit"]) for p in dec),
-                         ring_slots=dec[0][q_]["ring_slots"],
-                         cache_bytes=[p[q_]["cache_bytes"] for p in dec])
-                for q_ in ("q0", "q1")},
         decode_run=dict(arch="qwen3-14b", layers=L, batch=DIST_DECODE[1],
                         prompt=DIST_DECODE[2], window=DIST_DECODE[3],
-                        steps=DIST_DECODE[4],
-                        resident_bytes=[p["resident_bytes"] for p in dec],
-                        share_bytes=[p["share_bytes"] for p in dec],
-                        wall_s=[p["wall_s"] for p in dec],
-                        peak_gb=[p["peak_gb"] for p in dec]),
+                        steps=DIST_DECODE[4]),
+        **{leg: dict(
+            mesh=list(shape),
+            **{q_: dict(max_diff=max(max(p[q_]["diff"]) for p in recs[leg]),
+                        min_limit=min(min(p[q_]["limit"])
+                                      for p in recs[leg]),
+                        ring_slots=recs[leg][0][q_]["ring_slots"],
+                        cache_bytes=[p[q_]["cache_bytes"]
+                                     for p in recs[leg]])
+               for q_ in ("q0", "q1")},
+            wall_s=[p["wall_s"] for p in recs[leg]],
+            peak_gb=[p["peak_gb"] for p in recs[leg]])
+           for leg, shape in DIST_TP},
+        tensor_parallel=tp_lines,
         train=dict(arch="qwen3-14b", layers=DIST_TRAIN[0],
                    batch=DIST_TRAIN[1], seq=DIST_TRAIN[2],
                    steps=DIST_TRAIN[3], loss=tr[0]["loss"],

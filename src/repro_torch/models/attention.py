@@ -29,6 +29,16 @@ place (the int8 store by offset, on each shard): a functional copy of every
 layer's cache per token would move the whole cache through memory once per
 step for nothing.
 
+Under tensor parallelism (``tp``, the serving path under a mesh with
+model ranks) the projections take this rank's 'model' shards of the
+weights: q on the rank's ``H / n`` heads, k / v on its KV heads where
+their spec splits them or on every KV head where it replicates them (the
+rank's q heads then read the run of them their GQA groups use; decode
+projects its column chunk of them instead); ``wo`` is row-parallel and
+the partial sums add over 'model'.  The prefill cache and the decode core
+take every KV head and q whole, as the reference's ring and ``shard_map``
+do, so the rank's heads are all-gathered over 'model' first.
+
 KV caches are ring buffers: slot ``i`` holds absolute position
 ``p_i = pos - ((pos - i) mod W)`` (valid iff ``p_i >= 0``), which
 degenerates to the identity layout when ``W >= seq``.  RoPE is applied at
@@ -95,13 +105,23 @@ def attention_pspecs(cfg: ModelConfig, cross: bool = False) -> dict:
 
 def _project_qkv(params, x, cfg: ModelConfig, positions, kv_source=None,
                  apply_positions=True, use_kernels: bool = False):
-    """Returns q (B,S,H,hd), k/v (B,Skv,KV,hd) with norm+rope applied."""
-    B, S, _ = x.shape
-    hd = cfg.resolved_head_dim
+    """Returns q (B,S,H,hd), k/v (B,Skv,KV,hd) with norm+rope applied (H and
+    KV this rank's heads when the weights are its 'model' shards)."""
     src = x if kv_source is None else kv_source
-    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, hd)
-    k = (src @ params["wk"]).reshape(B, src.shape[1], cfg.num_kv_heads, hd)
-    v = (src @ params["wv"]).reshape(B, src.shape[1], cfg.num_kv_heads, hd)
+    q, k, v = (x @ params["wq"], src @ params["wk"], src @ params["wv"])
+    return _heads(params, q, k, v, cfg, positions, apply_positions,
+                  use_kernels)
+
+
+def _heads(params, q, k, v, cfg: ModelConfig, positions,
+           apply_positions=True, use_kernels: bool = False):
+    """Projections (B, S, heads * hd) as heads, qk-normed and rotated.  The
+    head counts come from the widths: all heads, or this rank's under
+    tensor parallelism."""
+    hd = cfg.resolved_head_dim
+    q = q.reshape(*q.shape[:2], -1, hd)
+    k = k.reshape(*k.shape[:2], -1, hd)
+    v = v.reshape(*v.shape[:2], -1, hd)
     if cfg.qk_norm and "q_norm" in params:
         q = layers.rmsnorm_headwise(params["q_norm"], q, cfg.norm_eps,
                                     use_kernel=use_kernels)
@@ -117,6 +137,49 @@ def _project_qkv(params, x, cfg: ModelConfig, positions, kv_source=None,
             q = layers.apply_rope(q, positions, cfg.rope_theta)
             k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _kv_split(k: torch.Tensor, cfg: ModelConfig) -> bool:
+    """Under tensor parallelism: whether k (B,S,*,hd) holds only this
+    rank's KV heads (``wk``'s resolved spec splits it over 'model'), as
+    opposed to all of them (the spec replicates it)."""
+    return k.shape[2] != cfg.num_kv_heads
+
+
+def _kv_for_local_heads(q, k, v, cfg: ModelConfig):
+    """The KV heads this rank's q heads read, in their GQA grouping.
+
+    q holds the rank's ``H / n`` heads ``[r·H/n, (r+1)·H/n)``.  Split k/v
+    already hold their KV heads; replicated k/v hold every KV head (each
+    rank projects them all, as GSPMD does), of which q head ``h`` reads
+    ``h // (H / KV)``: the contiguous run of them the rank's heads read is
+    kept.  A run the rank's heads do not read in equal groups raises.
+    """
+    if _kv_split(k, cfg):
+        return k, v
+    Hl = q.shape[2]
+    G = cfg.num_heads // cfg.num_kv_heads
+    first = shardctx.axis_index("model") * Hl
+    reads = [(first + i) // G for i in range(Hl)]
+    lo, nk = reads[0], reads[-1] - reads[0] + 1
+    if Hl % nk or reads != [lo + i // (Hl // nk) for i in range(Hl)]:
+        raise ValueError(f"tensor-parallel attention: q heads [{first}, "
+                         f"{first + Hl}) do not read KV heads in equal "
+                         f"groups ({cfg.num_heads}/{cfg.num_kv_heads} heads)")
+    return k[:, :, lo:lo + nk], v[:, :, lo:lo + nk]
+
+
+def _gather_columns(*ts: torch.Tensor):
+    """Tensors (B, S, c_i) of this rank's columns, each made whole over
+    'model' (column blocks in rank order), in one all-gather."""
+    B, S = ts[0].shape[:2]
+    g = collectives.all_gather(torch.cat(ts, dim=2)[:, :, None], 2, "model")
+    out, lo = [], 0
+    for t in ts:
+        c = t.shape[2]
+        out.append(g[:, :, :, lo:lo + c].reshape(B, S, -1))
+        lo += c
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -184,16 +247,22 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def full_attention(params, x, positions, cfg: ModelConfig, *,
                    causal: bool = True, encoder_out=None,
                    use_flash: bool = False, use_kernels: bool = False,
-                   q_block: int = 512, kv_block: int = 512) -> torch.Tensor:
+                   q_block: int = 512, kv_block: int = 512,
+                   tp: bool = False) -> torch.Tensor:
     """Self- or cross-attention over a full sequence.  Returns (B,S,D).
 
     ``use_flash`` takes the CUDA flash kernel and, like the reference,
     ignores ``q_block``/``kv_block`` (the kernel has its own tiles);
-    ``use_kernels`` routes the qk-norm through the rmsnorm kernel.
+    ``use_kernels`` routes the qk-norm through the rmsnorm kernel.  With
+    ``tp`` (self-attention) the weights are this rank's 'model' shards:
+    q/k/v, qk-norm, RoPE and attention run on the rank's heads, ``wo`` is
+    row-parallel on their rows and the partial sums add over 'model'.
     """
     cross = encoder_out is not None
     q, k, v = _project_qkv(params, x, cfg, None if cross else positions,
                            kv_source=encoder_out, use_kernels=use_kernels)
+    if tp:
+        k, v = _kv_for_local_heads(q, k, v, cfg)
     window = None if cross else cfg.attn_window
     if use_flash:
         out = kernel_ops.flash_attention(q, k, v, causal=causal and not cross,
@@ -202,8 +271,8 @@ def full_attention(params, x, positions, cfg: ModelConfig, *,
         out = chunked_attention(q, k, v, causal=causal and not cross,
                                 window=window, q_block=q_block,
                                 kv_block=kv_block)
-    out = out.reshape(x.shape[0], x.shape[1], -1)
-    return out @ params["wo"]
+    out = out.reshape(x.shape[0], x.shape[1], -1) @ params["wo"]
+    return collectives.psum(out, "model") if tp else out
 
 
 # ---------------------------------------------------------------------------
@@ -311,7 +380,7 @@ def decode_attention(params, cache: KVCache, x_new: torch.Tensor,
                      pos: torch.Tensor, cfg: ModelConfig, *,
                      update: bool = True, cross: bool = False,
                      rope_pos: Optional[torch.Tensor] = None,
-                     use_kernels: bool = False
+                     use_kernels: bool = False, tp: bool = False
                      ) -> Tuple[torch.Tensor, KVCache]:
     """One-token attention step.
 
@@ -320,7 +389,12 @@ def decode_attention(params, cache: KVCache, x_new: torch.Tensor,
     it differs from the ring position (M-RoPE vision offset).  A cache
     sharded over 'model' (``DTensor``) is scored shard by shard and
     combined across the model ranks; the cache is updated in place and
-    returned as it came.
+    returned as it came.  With ``tp`` the weights are this rank's 'model'
+    shards: q and the new k/v are projected column-parallel (the rank's
+    heads; its column chunk of a replicated ``wk`` / ``wv``) and
+    all-gathered over 'model' for the core, which takes heads whole (the
+    reference's ``shard_map`` in_specs); ``wo`` is row-parallel on the
+    rank's heads and the partial sums add over 'model'.
     """
     B = x_new.shape[0]
     W = cache.k.shape[1]
@@ -331,8 +405,19 @@ def decode_attention(params, cache: KVCache, x_new: torch.Tensor,
         positions = rp[:, None, None].expand(B, 3, 1)
     else:
         positions = rp[:, None]
-    q, new_k, new_v = _project_qkv(params, x_new, cfg, positions,
-                                   use_kernels=use_kernels)
+    if tp:
+        # column-parallel q / k / v: the rank's heads, or its column chunk
+        # of a replicated ``wk`` / ``wv`` (GSPMD divides that projection
+        # too); all-gathered, then normed and rotated on whole heads
+        wk, wv = params["wk"], params["wv"]
+        if wk.shape[1] == cfg.num_kv_heads * cfg.resolved_head_dim:
+            wk, wv = shardctx.model_chunk(wk, 1), shardctx.model_chunk(wv, 1)
+        q, new_k, new_v = _heads(params, *_gather_columns(
+            x_new @ params["wq"], x_new @ wk, x_new @ wv), cfg, positions,
+            use_kernels=use_kernels)
+    else:
+        q, new_k, new_v = _project_qkv(params, x_new, cfg, positions,
+                                       use_kernels=use_kernels)
     if shardctx.is_dtensor(cache.k):
         n_model = shardctx.axis_size("model")
         if n_model != cache.k.device_mesh.size():
@@ -350,7 +435,11 @@ def decode_attention(params, cache: KVCache, x_new: torch.Tensor,
         out, new_cache = _decode_core(q, cache, new_k, new_v, pos, W=W,
                                       offset=0, s_loc=W, update=update,
                                       use_kernels=use_kernels)
+    if tp:
+        out = shardctx.model_chunk(out, 2)               # the rank's heads
     out = out.reshape(B, 1, -1) @ params["wo"]
+    if tp:
+        out = collectives.psum(out, "model")
     return out, new_cache
 
 
@@ -364,9 +453,18 @@ def build_cross_cache(params, encoder_out: torch.Tensor,
 
 def prefill_cache(params, x, positions, cfg: ModelConfig,
                   window_override: Optional[int] = None,
-                  quant: bool = False, use_kernels: bool = False) -> KVCache:
-    """Build the decode-layout cache from a full prefill pass."""
+                  quant: bool = False, use_kernels: bool = False,
+                  tp: bool = False) -> KVCache:
+    """Build the decode-layout cache from a full prefill pass.
+
+    With ``tp`` the weights are this rank's 'model' shards; the ring holds
+    every KV head on each model rank, as the reference's does, so split
+    k/v are all-gathered over 'model' along the heads first.
+    """
     _, k, v = _project_qkv(params, x, cfg, positions, use_kernels=use_kernels)
+    if tp and _kv_split(k, cfg):
+        k, v = (t.reshape(*k.shape[:2], -1, k.shape[3])
+                for t in _gather_columns(k.flatten(2), v.flatten(2)))
     W = window_override or (min(x.shape[1], cfg.attn_window)
                             if cfg.attn_window else x.shape[1])
     if cfg.attn_window:

@@ -6,7 +6,9 @@ sharding specs; here ``init_*`` return the params and each has a
 ``*_pspecs`` beside it with the reference's specs.  ``rmsnorm`` and
 ``rmsnorm_headwise`` go
 through the hand-written kernel (``kernels.ops.rmsnorm``) when
-``use_kernel`` is set; the function is the same either way.
+``use_kernel`` is set; the function is the same either way.  ``mlp``,
+``embed`` and ``unembed`` take ``tp``: their weights are then this rank's
+'model' shards and the result is combined over 'model'.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.parallel import collectives, shardctx
 from repro_torch.parallel.shardctx import P
 
 
@@ -87,7 +90,11 @@ def mlp_pspecs(activation: str) -> dict:
     return specs
 
 
-def mlp(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, activation: str,
+        tp: bool = False) -> torch.Tensor:
+    """With ``tp`` the weights are this rank's 'model' shards (Megatron):
+    ``wi_*`` column-parallel (``d_ff / n`` columns, the activation on
+    them), ``wo`` row-parallel, its partial sums added over 'model'."""
     up = x @ params["wi_up"]
     if activation == "swiglu":
         gate = x @ params["wi_gate"]
@@ -98,7 +105,8 @@ def mlp(params: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
     else:
         raise ValueError(f"unknown activation {activation!r}")
-    return h @ params["wo"]
+    y = h @ params["wo"]
+    return collectives.psum(y, "model") if tp else y
 
 
 # ---------------------------------------------------------------------------
@@ -181,14 +189,26 @@ def embedding_pspecs(tie: bool) -> dict:
     return specs
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params: dict, tokens: torch.Tensor,
+          tp: bool = False) -> torch.Tensor:
+    """Rows of the table.  With ``tp`` the table is this rank's 'model'
+    shard (V, D/n): the rows' D/n chunks, all-gathered over 'model'."""
+    y = params["table"][tokens]
+    return collectives.all_gather(y, y.dim() - 1, "model") if tp else y
 
 
-def unembed(params: dict, x: torch.Tensor, tie: bool) -> torch.Tensor:
+def unembed(params: dict, x: torch.Tensor, tie: bool,
+            tp: bool = False) -> torch.Tensor:
+    """Logits (..., V).  With ``tp`` the table is this rank's 'model'
+    shard: ``out`` (D, V/n) column-parallel, the logits all-gathered over
+    'model'; a tied ``table`` (V, D/n) row-parallel on x's D/n chunk, the
+    partial logits added over 'model'.  Every rank returns whole logits."""
     if tie:
-        return x @ params["table"].T.to(x.dtype)
-    return x @ params["out"]
+        xs = shardctx.model_chunk(x, -1) if tp else x
+        y = xs @ params["table"].T.to(x.dtype)
+        return collectives.psum(y, "model") if tp else y
+    y = x @ params["out"]
+    return collectives.all_gather(y, y.dim() - 1, "model") if tp else y
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,15 @@ returns the loss of the whole batch (averaged over the batch axes), as the
 reference's does; ``prefill`` and ``decode_step`` return the rank's rows'
 logits.  Under ``Runtime.seq_shard`` the residual stream lives S-sharded
 over ``model`` between sublayers (Megatron-SP).
+
+The serving entry points ``prefill`` and ``decode_step`` are tensor-parallel
+where the 'model' axis has ranks, as GSPMD partitions the reference's
+layers by their specs (Megatron): the self-attention, the dense MLP, the
+embedding lookup and the LM head take each weight as its resolved spec has
+it, this rank's 'model' shard or whole (:func:`_tp_block_params`,
+:func:`_serving_table`), and their partial sums add over 'model'.  They
+pass that choice down through the private ``_tp`` keyword; ``loss_fn``,
+``logits_fn`` and the trainer do not, and compute whole layers.
 """
 from __future__ import annotations
 
@@ -288,6 +297,76 @@ def _pin_block_params(params: Dict[str, Any],
     return pin(params)
 
 
+def _tp_serving(tp: bool) -> bool:
+    """The tensor-parallel serving path: asked for (``prefill`` and
+    ``decode_step`` ask) under a mesh whose 'model' axis has ranks."""
+    return tp and shardctx.axis_size("model") > 1
+
+
+def _tp_block_params(params: Dict[str, Any], cfg: ModelConfig, kind: str,
+                     production: bool = True):
+    """(weights, tp): a block's weights for the tensor-parallel serving
+    path, and which of its sublayers (``"mixer"``, ``"ffn"``) compute on
+    'model' shards.
+
+    The self-attention (an ``"attn"`` block's mixer) and the dense MLP take
+    each leaf as its resolved spec has it (``shardctx.model_dim`` on the
+    specs of ``block_pspecs``): a leaf the spec splits over 'model' as
+    this rank's 'model' shard, gathered over 'data' only
+    (``shardctx.model_shard``); a leaf the spec replicates whole.  The
+    attention computes whole, its weights gathered, where the model axis
+    does not divide its heads (qwen3-14b's 40 on 16 model ranks), as does
+    an MLP whose ``d_ff`` its spec leaves whole.  Everything else (norms,
+    SSM and RG-LRU mixers, whisper's cross-attention, the MoE FFN with its
+    shared experts) is :func:`_pin_block_params`'s.
+    """
+    specs = block_pspecs(cfg, kind, cross="cross_attn" in params)
+    n = shardctx.axis_size("model")
+    out: Dict[str, Any] = {}
+    tp = {"mixer": False, "ffn": False}
+
+    def dims_of(name):
+        return {k: shardctx.model_dim(v, specs[name][k])
+                for k, v in params[name].items()}
+
+    def take(name, dims):
+        return {k: (shardctx.gather(v) if dims[k] is None
+                    else shardctx.model_shard(v, dims[k]))
+                for k, v in params[name].items()}
+
+    if kind == "attn":
+        dims = dims_of("mixer")
+        if (dims["wq"] is None) != (dims["wo"] is None) or \
+                (dims["wk"] is None) != (dims["wv"] is None):
+            raise ValueError(f"tensor-parallel attention: specs split "
+                             f"{dims} over 'model' inconsistently")
+        heads_divide = cfg.num_heads % n == 0 and (
+            dims["wk"] is None or cfg.num_kv_heads % n == 0)
+        if dims["wq"] is not None and heads_divide:
+            out["mixer"], tp["mixer"] = take("mixer", dims), True
+    if "ffn" in params and cfg.moe is None:
+        dims = dims_of("ffn")
+        if len({d is None for d in dims.values()}) > 1:
+            raise ValueError(f"tensor-parallel MLP: specs split {dims} over "
+                             f"'model' inconsistently")
+        if dims["wo"] is not None:
+            out["ffn"], tp["ffn"] = take("ffn", dims), True
+    rest = {k: v for k, v in params.items() if k not in out}
+    out.update(_pin_block_params(rest, production))
+    return out, tp
+
+
+def _block_weights(params, cfg: ModelConfig, kind: str, rt: Runtime,
+                   tp: bool):
+    """(weights, tp) of a block: :func:`_tp_block_params` on the
+    tensor-parallel serving path, else :func:`_pin_block_params` with no
+    sublayer on shards."""
+    if _tp_serving(tp):
+        return _tp_block_params(params, cfg, kind, rt.production)
+    return (_pin_block_params(params, rt.production),
+            {"mixer": False, "ffn": False})
+
+
 def _seq_sharded(rt: Runtime) -> bool:
     return rt.seq_shard and shardctx.axis_size("model") > 1
 
@@ -305,11 +384,7 @@ def _stream_rt(rt: Runtime, seq_len: int) -> Runtime:
 
 def _seq_scatter(y: torch.Tensor) -> torch.Tensor:
     """This rank's S chunk over 'model' (y is whole on every model rank)."""
-    n = shardctx.axis_size("model")
-    if y.shape[1] % n:
-        raise ValueError(f"seq_shard: S={y.shape[1]} does not divide over "
-                         f"{n} model ranks")
-    return y.chunk(n, dim=1)[shardctx.axis_index("model")]
+    return shardctx.model_chunk(y, 1)
 
 
 def _whole(tree: Dict[str, Any], keys=None) -> Dict[str, torch.Tensor]:
@@ -325,17 +400,52 @@ def _unembedding(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
                   ("table",) if cfg.tie_embeddings else ("out",))
 
 
+def _serving_table(params, cfg: ModelConfig, key: str, tp: bool):
+    """(weight, split) of the embedding table ``key`` (``"table"`` (V, D) or
+    ``"out"`` (D, V)) for ``prefill`` and ``decode_step``.  On the
+    tensor-parallel serving path a table its resolved spec splits over
+    'model' comes as this rank's shard (the spec splits D of ``table``, V
+    of ``out``); otherwise, or where the model axis does not divide that
+    dimension, whole."""
+    leaf = params["embed"][key]
+    if not _tp_serving(tp):
+        return shardctx.gather(leaf), False
+    dim = shardctx.model_dim(
+        leaf, layers.embedding_pspecs(cfg.tie_embeddings)[key])
+    if dim is None:
+        return shardctx.gather(leaf), False
+    if dim != 1:
+        raise ValueError(f"tensor-parallel {key}: split over 'model' on "
+                         f"dimension {dim}, not 1")
+    return shardctx.model_shard(leaf, dim), True
+
+
+def _serving_logits(params, x, cfg: ModelConfig, tp: bool,
+                    tied=None) -> torch.Tensor:
+    """The LM head of ``prefill`` and ``decode_step``: whole logits on
+    every rank, from ``out`` (column-parallel where split) or the tied
+    table (row-parallel where split; ``tied``: its :func:`_serving_table`
+    pair when the caller already holds it)."""
+    tie = cfg.tie_embeddings
+    key = "table" if tie else "out"
+    w, split = tied if tied is not None else _serving_table(params, cfg,
+                                                            key, tp)
+    return layers.unembed({key: w}, x, tie, tp=split)
+
+
 def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
                   kind: str, rt: Runtime, *, causal: bool = True,
                   build_cache: bool = False,
-                  cache_window: Optional[int] = None):
+                  cache_window: Optional[int] = None, _tp: bool = False):
     """Full-sequence block. Returns (x, aux_or_None, cache_or_None).
 
     ``aux`` is the MoE FFN's routing telemetry, ``None`` for a block
     without one (the reference returns zeros there; ``forward_hidden``
-    starts its sum from zeros, so the total is the same).
+    starts its sum from zeros, so the total is the same).  ``_tp`` (the
+    serving entry points') computes the self-attention and dense MLP on
+    this rank's 'model' shards (:func:`_tp_block_params`).
     """
-    params = _pin_block_params(params, rt.production)
+    params, tp = _block_weights(params, cfg, kind, rt, _tp)
     seq = _seq_sharded(rt)
 
     def gather_seq(h):
@@ -346,9 +456,10 @@ def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
 
     def scatter_seq(y):
         # inverse transition: the sublayer's output returns to the
-        # S-sharded residual stream.  The reference's all-reduce + slice
-        # combines tensor-parallel partial sums; each model rank computes
-        # the sublayer whole here, so the slice is all that remains
+        # S-sharded residual stream.  A tensor-parallel sublayer's partial
+        # sums were all-reduced over 'model' inside it, so this slice
+        # completes the reference's all-reduce + slice; a sublayer that
+        # computes whole on each model rank needs the slice alone
         return _seq_scatter(y) if seq else y
 
     k = rt.use_kernels
@@ -358,12 +469,13 @@ def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
     if kind == "attn":
         mix = attention.full_attention(
             params["mixer"], h, positions, cfg, causal=causal, use_flash=k,
-            use_kernels=k, q_block=rt.q_block, kv_block=rt.kv_block)
+            use_kernels=k, q_block=rt.q_block, kv_block=rt.kv_block,
+            tp=tp["mixer"])
         if build_cache:
             cache = {"self": attention.prefill_cache(
                 params["mixer"], h, positions, cfg,
                 window_override=cache_window, quant=rt.kv_quant,
-                use_kernels=k)}
+                use_kernels=k, tp=tp["mixer"])}
     else:
         fwd = ssm.ssm_forward if kind == "ssm" else rglru.rglru_forward
         mix = fwd(params["mixer"], h, cfg, use_kernel=k,
@@ -391,23 +503,24 @@ def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
             y, aux = moe.moe_forward(params["ffn"], h, cfg,
                                      production=rt.production)
         else:
-            y = layers.mlp(params["ffn"], h, cfg.activation)
+            y = layers.mlp(params["ffn"], h, cfg.activation, tp=tp["ffn"])
         x = x + scatter_seq(y)
     x = shardctx.hint(x, "batch", "model" if seq else None, None)
     return x, aux, cache
 
 
 def block_decode(params, state, x_new, pos, cfg: ModelConfig, kind: str,
-                 rt: Runtime, rope_pos=None):
-    """One-token block step. x_new: (B,1,D). Returns (x, new_state)."""
-    params = _pin_block_params(params, rt.production)
+                 rt: Runtime, rope_pos=None, _tp: bool = False):
+    """One-token block step. x_new: (B,1,D). Returns (x, new_state).
+    ``_tp`` as in :func:`block_forward`."""
+    params, tp = _block_weights(params, cfg, kind, rt, _tp)
     k = rt.use_kernels
     h = layers.rmsnorm(params["norm1"], x_new, cfg.norm_eps, use_kernel=k)
     new_state = dict(state)
     if kind == "attn":
         mix, new_state["self"] = attention.decode_attention(
             params["mixer"], state["self"], h, pos, cfg, rope_pos=rope_pos,
-            use_kernels=k)
+            use_kernels=k, tp=tp["mixer"])
     elif kind == "ssm":
         mix, new_state["self"] = ssm.ssm_step(params["mixer"], state["self"],
                                               h, cfg)
@@ -431,7 +544,7 @@ def block_decode(params, state, x_new, pos, cfg: ModelConfig, kind: str,
             y, _ = moe.moe_forward(params["ffn"], h, cfg,
                                    production=rt.production)
         else:
-            y = layers.mlp(params["ffn"], h, cfg.activation)
+            y = layers.mlp(params["ffn"], h, cfg.activation, tp=tp["ffn"])
         x = x + y
     return x, new_state
 
@@ -524,23 +637,26 @@ def _mrope_positions(B: int, S: int, n_vision: int,
 
 
 def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                 rt: Runtime = DEFAULT_RT):
+                 rt: Runtime = DEFAULT_RT, _tp: bool = False):
     """-> (x (B,S,D), positions, encoder_out_or_None).
 
     ``positions`` is (B, S), (B, 3, S) under M-RoPE, or ``None`` for
-    whisper's sinusoidal positions.
+    whisper's sinusoidal positions.  ``_tp`` looks tokens up in this
+    rank's 'model' shard of the table (D / n of each embedding, all-gathered
+    over 'model') and reaches whisper's encoder (:func:`block_forward`).
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
-    x = layers.embed(_whole(params["embed"], ("table",)), tokens)
+    table, split = _serving_table(params, cfg, "table", _tp)
+    x = layers.embed({"table": table}, tokens, tp=split)
     encoder_out = None
     if cfg.encoder_layers:
         # whisper: the conv frontend is a stub — precomputed frame embeddings
         enc = batch["audio_embeds"]
         enc = enc + layers.sinusoidal_positions(
             enc.shape[1], cfg.d_model, dev).to(enc.dtype)
-        encoder_out = encode(params, enc, cfg, rt)
+        encoder_out = encode(params, enc, cfg, rt, _tp=_tp)
         x = x + layers.sinusoidal_positions(S, cfg.d_model, dev).to(x.dtype)
         positions = None                      # sinusoidal, no RoPE
     elif cfg.vision_stub and "vision_embeds" in batch:
@@ -557,7 +673,7 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def encode(params, enc_in: torch.Tensor, cfg: ModelConfig,
-           rt: Runtime = DEFAULT_RT) -> torch.Tensor:
+           rt: Runtime = DEFAULT_RT, _tp: bool = False) -> torch.Tensor:
     """Whisper encoder: bidirectional attention over frame embeddings.
 
     The reference's ``lax.scan`` over the stacked ``params["encoder"]``
@@ -567,7 +683,7 @@ def encode(params, enc_in: torch.Tensor, cfg: ModelConfig,
 
     def one(p, x):
         return block_forward(p, x, None, None, cfg, "attn", rt,
-                             causal=False)[0]
+                             causal=False, _tp=_tp)[0]
 
     seq = _seq_sharded(rt)
     x = _seq_scatter(enc_in) if seq else enc_in
@@ -585,7 +701,7 @@ def encode(params, enc_in: torch.Tensor, cfg: ModelConfig,
 
 def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
                    rt: Runtime, build_cache: bool = False,
-                   cache_window: Optional[int] = None):
+                   cache_window: Optional[int] = None, _tp: bool = False):
     """Runs the decoder stack. Returns (hidden, aux, (caches_rep, caches_rest)).
 
     Each cache part is ``None`` unless ``build_cache``; ``caches_rep`` has
@@ -593,7 +709,7 @@ def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
     blocks' telemetry (zeros without MoE).  Each block is checkpointed
     under ``rt.remat`` unless it builds a cache.  Under ``seq_shard`` the
     stream is cut into this rank's S chunk before the first block and
-    gathered after the last.
+    gathered after the last.  ``_tp`` as in :func:`block_forward`.
     """
     pattern = _pattern(cfg)
     rt = _stream_rt(rt, x.shape[1])
@@ -610,7 +726,7 @@ def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
         def run(p, x):
             return block_forward(p, x, positions, encoder_out, cfg, kind, rt,
                                  causal=True, build_cache=build_cache,
-                                 cache_window=cache_window)
+                                 cache_window=cache_window, _tp=_tp)
 
         x, a, c = _remat(run, p, x) if remat else run(p, x)
         if a is not None:
@@ -787,12 +903,11 @@ def prefill(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT,
     side`` (``side = ceil(sqrt(V))``), so the state carries ``rope_offset
     = side - V`` for decode.
     """
-    x, positions, enc = embed_inputs(params, batch, cfg, rt)
+    x, positions, enc = embed_inputs(params, batch, cfg, rt, _tp=True)
     x, _, (caches_rep, caches_rest) = forward_hidden(
         params, x, positions, enc, cfg, rt, build_cache=True,
-        cache_window=window)
-    logits = layers.unembed(_unembedding(params, cfg), x[:, -1:],
-                            cfg.tie_embeddings)[:, 0]
+        cache_window=window, _tp=True)
+    logits = _serving_logits(params, x[:, -1:], cfg, True)[:, 0]
     B, S = batch["tokens"].shape
     dev = x.device
     offset = 0
@@ -817,8 +932,8 @@ def decode_step(params, state: DecodeState, new_tokens: torch.Tensor,
     pattern = _pattern(cfg)
     pos = state.pos
     rope_pos = pos + state.rope_offset
-    embed = _whole(params["embed"])
-    x = layers.embed(embed, new_tokens)                      # (B,1,D)
+    emb = _serving_table(params, cfg, "table", True)
+    x = layers.embed({"table": emb[0]}, new_tokens, tp=emb[1])  # (B,1,D)
     if cfg.encoder_layers:
         # sinusoidal position of the new token
         x = x + layers.sinusoidal_at(pos, cfg.d_model).to(x.dtype)[:, None]
@@ -827,16 +942,18 @@ def decode_step(params, state: DecodeState, new_tokens: torch.Tensor,
             for i, kind in enumerate(pattern):
                 st = _index(state.reps[i], r)
                 x, new = block_decode(_index(params["reps"][i], r), st, x,
-                                      pos, cfg, kind, rt, rope_pos=rope_pos)
+                                      pos, cfg, kind, rt, rope_pos=rope_pos,
+                                      _tp=True)
                 _write_(st, new)
     new_rest = []
     for j, p in enumerate(params.get("rest", ())):
         x, new = block_decode(p, state.rest[j], x, pos, cfg,
                               pattern[j % len(pattern)], rt,
-                              rope_pos=rope_pos)
+                              rope_pos=rope_pos, _tp=True)
         new_rest.append(new)
     x = layers.rmsnorm(_whole(params["final_norm"]), x, cfg.norm_eps,
                        use_kernel=rt.use_kernels)
-    logits = layers.unembed(embed, x, cfg.tie_embeddings)[:, 0]
+    logits = _serving_logits(params, x, cfg, True,
+                             emb if cfg.tie_embeddings else None)[:, 0]
     return logits, DecodeState(pos=pos + 1, rope_offset=state.rope_offset,
                                reps=state.reps, rest=tuple(new_rest))

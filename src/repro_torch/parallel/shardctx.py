@@ -20,7 +20,10 @@ live at rest as ``DTensor``s laid out by their resolved specs
 (:func:`layout`); a layer reads its weights through :func:`gather`, an
 all-gather whose backward all-reduces the gradient over the axes the rank's
 copy stands for and keeps its own shard (the reduce-scatter, written as
-all-reduce + slice).  Cache and stacked-layer helpers (:func:`select`,
+all-reduce + slice).  The tensor-parallel serving path reads a weight its
+spec splits over 'model' through :func:`model_shard` instead: only this
+rank's 'model' shard, found by :func:`model_dim`.  Cache and stacked-layer
+helpers (:func:`select`,
 :func:`stack`, :func:`local`) move between a ``DTensor`` and its local
 tensor without a collective.
 """
@@ -325,6 +328,48 @@ def gather(t, keep: Sequence[str] = ()):
         return t
     from repro_torch.parallel import collectives
     return collectives.gather_dtensor(t, tuple(keep))
+
+
+def model_chunk(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk of ``t`` along ``dim`` over 'model' (a view)."""
+    n = axis_size("model")
+    if t.shape[dim] % n:
+        raise ValueError(f"model_chunk: {t.shape[dim]} does not divide over "
+                         f"{n} model ranks")
+    return t.chunk(n, dim=dim)[axis_index("model")]
+
+
+def model_dim(t, spec):
+    """The dimension of ``t`` that its spec, resolved shape-aware on the
+    current mesh (``resolve.resolve_spec_for``), splits over 'model'; None
+    when the resolved spec leaves 'model' out (the leaf is replicated over
+    it, as the reference replicates it)."""
+    from repro_torch.parallel import resolve
+    rs = resolve.resolve_spec_for(tuple(t.shape), spec, current_mesh())
+    for d, entry in enumerate(rs):
+        if entry == "model":
+            return d
+        if isinstance(entry, tuple) and "model" in entry:
+            raise ValueError(f"model_dim: {spec} splits one dimension over "
+                             f"'model' and other axes")
+    return None
+
+
+def model_shard(t, dim: int):
+    """A weight as a tensor-parallel layer computes with it: this rank's
+    'model' shard along ``dim``, whole over every other axis.  A ``DTensor``
+    laid out by the same spec is gathered over the other axes only
+    (``gather(keep=("model",))``, the form ``moe_sharded`` uses); a plain
+    (replicated) tensor gives its chunk.  A ``DTensor`` laid out otherwise
+    raises."""
+    if not is_dtensor(t):
+        return model_chunk(t, dim)
+    from torch.distributed.tensor import Shard
+    at = _axis_dims(t.device_mesh).index("model")
+    if t.placements[at] != Shard(dim):
+        raise ValueError(f"model_shard: a leaf laid out as {t.placements} "
+                         f"is not split over 'model' on dimension {dim}")
+    return gather(t, keep=("model",))
 
 
 def full(t) -> torch.Tensor:

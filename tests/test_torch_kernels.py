@@ -82,6 +82,11 @@ FLASH_EDGES = [
     (2, 33, 128, 16, 1, 256, "bfloat16", False, None),
     (1, 1000, 1000, 16, 1, 256, "bfloat16", True, 300),
     (2, 520, 520, 40, 8, 128, "bfloat16", False, None),
+    # tensor-parallel prefill: each rank's heads of qwen3-14b on 2 model
+    # ranks (20 / 4), and of reduced qwen3-14b on 4 (one q head reading
+    # one of the replicated KV heads it keeps: 1 / 1)
+    (2, 512, 512, 20, 4, 128, "bfloat16", True, None),
+    (2, 24, 24, 1, 1, 32, "bfloat16", True, None),
 ]
 
 
