@@ -126,10 +126,10 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              plans (256 ranks), deepseek-moe-16b ``decode_32k`` (256) and
              qwen3-14b ``prefill_32k`` on the 2x16x16 mesh (512).  Each
              cell's roofline terms; the three qwen3 train profiles go to
-             ``AmoebaController.choose_plan``, which prints its plan.  The
-             two serving cells print their per-device FLOPs beside the
-             count before the tensor-parallel serving path
-             (``DRYRUN_BEFORE_TP``), which they must fall below.
+             ``AmoebaController.choose_plan``, which prints its plan.  Every
+             cell but whisper's prints its per-device FLOPs beside the
+             count before its entry point was tensor-parallel
+             (``DRYRUN_BEFORE_TP``), which it must fall below.
 10. dist   — the sharded paths (``repro_torch.parallel``): 4 ranks on the
              one card, started with ``torch.multiprocessing`` in the spawn
              mode, joined by gloo (NCCL refuses two ranks on one device;
@@ -156,11 +156,18 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              (counted on ``meta``) within 2 %, its collective bytes by
              kind; layer 0's weights and both tables as the path takes
              them at the spec's share (``d / n_model`` of each split
-             leaf), the resident bytes at the spec share.  ``dist:train``:
-             qwen3-14b at full width, 2 layers, B4 S512, 2 steps with remat
-             and int8 gradient compression on the global leaves' rows,
-             against ``Trainer()`` on one rank: losses within 0.02, grad
-             norms within 1 %.  ``dist:compress``: ``compressed_psum_mean``
+             leaf), the resident bytes at the spec share.  ``dist:train``
+             (mesh (2, 2)) and ``dist:train_fused`` ((1, 4)): the
+             tensor-parallel trainer, qwen3-14b at full width, 2 layers, B4
+             S512, 2 steps with remat and int8 gradient compression on the
+             global leaves' rows (weights and state by their specs, FSDP
+             over 'data'), against ``Trainer()`` on one rank: losses within
+             0.02, grad norms within 1 %; the first step counted on every
+             rank: its matmul FLOPs a quarter of the unsharded whole
+             batch's step (counted on ``meta``) within 2 %, its collective
+             bytes by kind; layer 0's weights and both tables as the path
+             takes them at the spec's share, the parameters' bytes at
+             their specs' share.  ``dist:compress``: ``compressed_psum_mean``
              over 'data' on a (5120, 17408) fp32 leaf, within max|g| / 127
              x 1.5 of the true mean.  ``dist:restore``: the train leg's
              two layers (their stacked parameters) saved on the (2, 2)
@@ -2337,12 +2344,23 @@ DRYRUN_CELLS = (("qwen3-14b", "train_4k", False, "base"),
                 ("qwen3-14b", "train_4k", False, "scale_out"),
                 ("deepseek-moe-16b", "decode_32k", False, "base"),
                 ("qwen3-14b", "prefill_32k", True, "base"))
-# the serving cells' per-device TFLOP on the tree before the tensor-parallel
-# serving path (each rank computed whole layers on its rows): PR 22's
-# ``launch/dryrun.py`` counting the same cells on a CPU (the count depends on
-# shapes alone)
-DRYRUN_BEFORE_TP = {("deepseek-moe-16b", "decode_32k"): 0.024377294848,
-                    ("qwen3-14b", "prefill_32k"): 1841.68353234944}
+# each cell's per-device TFLOP on the tree before its entry point was
+# tensor-parallel (each rank computed whole layers on its rows), by (arch,
+# shape, plan): ``launch/dryrun.py`` counting the same cells on a CPU (the
+# count depends on shapes alone), the serving cells on the tree before the
+# tensor-parallel serving path, the train cells on the one before the
+# tensor-parallel trainer
+DRYRUN_BEFORE_TP = {
+    ("deepseek-moe-16b", "decode_32k", "base"): 0.024377294848,
+    ("qwen3-14b", "prefill_32k", "base"): 1841.68353234944,
+    ("qwen3-14b", "train_4k", "base"): 7747.09020983296,
+    ("qwen3-14b", "train_4k", "fused"): 15494.18041966592,
+    ("qwen3-14b", "train_4k", "scale_out"): 3873.54510491648}
+# the train cells' peak GB a device on that tree, which they must fall below
+DRYRUN_PEAK_BEFORE_TP = {
+    ("qwen3-14b", "train_4k", "base"): 168.141707284,
+    ("qwen3-14b", "train_4k", "fused"): 333.229512724,
+    ("qwen3-14b", "train_4k", "scale_out"): 85.597804564}
 DRYRUN_CHILD = r"""
 import json, sys, time
 import torch
@@ -2404,14 +2422,19 @@ def dryrun_cells_phase(proc, smi):
             compute_s=r["compute_s"], memory_s=r["memory_s"],
             collective_s=r["collective_s"], bottleneck=r["bottleneck"],
             trace_s=a["trace_s"])))
-        before = DRYRUN_BEFORE_TP.get((arch, shape))
+        before = DRYRUN_BEFORE_TP.get((arch, shape, plan))
         if before is not None:
-            # the serving cells: prefill and decode now tensor-parallel
+            # every cell's entry point is tensor-parallel now
             now = a["flops_per_device"] / 1e12
-            log(f"dryrun:tp:{arch}:{shape}", json.dumps(dict(
+            peak = a["peak_bytes_per_device"] / 1e9
+            peak_before = DRYRUN_PEAK_BEFORE_TP.get((arch, shape, plan))
+            log(f"dryrun:tp:{arch}:{shape}:{plan}", json.dumps(dict(
                 tflop_per_device=now, before_tp_tflop=before,
-                change=now / before - 1, card=smi)))
-            assert now < before, (arch, shape, now, before)
+                change=now / before - 1, peak_gb_per_device=peak,
+                before_tp_peak_gb=peak_before, card=smi)))
+            assert now < before, (arch, shape, plan, now, before)
+            assert peak_before is None or peak < peak_before, (
+                arch, shape, plan, peak, peak_before)
     profiles = {a["plan"]: StepProfile(
         name=f"{a['arch']}/{a['shape']}", flops=a["flops_per_device"],
         hbm_bytes=a["hbm_bytes_per_device"],
@@ -2451,6 +2474,9 @@ TP_SPLIT = ("mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo", "ffn/wi_gate",
 # qwen3-14b: layers, B, S, steps (2, not 3: a step moves ~14 GB a rank
 # through host memory, ~30 s on this layout)
 DIST_TRAIN = (2, 4, 512, 2)
+# the tensor-parallel train legs: the train leg's run on each (data, model)
+# mesh, by leg name (the first is the restore leg's source)
+DIST_TRAIN_TP = (("train", (2, 2)), ("train_fused", (1, 4)))
 DIST_COMPRESS = (5120, 17408)      # one full-width qwen3-14b MLP gradient
 # dist:train, losses on the mesh against Trainer() on one rank.  The first
 # step's loss is a forward pass over the same bf16 weights, its rows split
@@ -2551,6 +2577,9 @@ def dist_references(d):
         del st, logits
     del params
     shape, tcfg = _dist_train_setup(tr_cfg)
+    # the unsharded whole batch's count of one step, on ``meta``
+    sc, _ = predict_train_step(tr_cfg, shape, tcfg)
+    ref["train_count"] = dict(flops=sc.flops, by_op=dict(sc.flops_by_op))
     hist = Trainer(tr_cfg, shape, tcfg, device="cuda").train(
         DIST_TRAIN[3])["history"]
     ref["train"] = [(m.loss, m.grad_norm) for m in hist]
@@ -2581,7 +2610,7 @@ def _tp_count(params, prompts, cfg) -> dict:
 
 def _tp_weights(params, cfg, mesh) -> dict:
     """Each TP leaf's bytes as layer 0's tensor-parallel serving path takes
-    them on this rank (``_tp_block_params``, ``_serving_table``), beside the
+    them on this rank (``_tp_block_params``, ``_table_shard``), beside the
     whole leaf's: {path: [mine, whole]}."""
     from repro_torch.models import transformer as T
     from repro_torch.parallel import shardctx
@@ -2593,8 +2622,7 @@ def _tp_weights(params, cfg, mesh) -> dict:
         out = {f"{sub}/{k}": [nbytes(v), nbytes(blk[sub][k])]
                for sub in ("mixer", "ffn") for k, v in w[sub].items()}
         for k in ("table", "out"):
-            out["embed/" + k] = [nbytes(T._serving_table(params, cfg, k,
-                                                         True)[0]),
+            out["embed/" + k] = [nbytes(T._table_shard(params, cfg, k)[0]),
                                  nbytes(params["embed"][k])]
     return out
 
@@ -2669,7 +2697,7 @@ def _dist_rank(d, res):
     from torch.distributed.tensor import Shard
     from repro_torch.optim.adamw import BLOCK
     from repro_torch.parallel import compression as C
-    from repro_torch.parallel import shardctx
+    from repro_torch.parallel import resolve, shardctx
     from repro_torch.train import Trainer
 
     # 4 ranks on one card: NCCL refuses two ranks on one device, so gloo
@@ -2771,9 +2799,14 @@ def _dist_rank(d, res):
         out["spec_share_bytes"] = spec_share
         return out
 
-    def train_leg():
-        shape, tcfg = _dist_train_setup(tr_cfg)
-        tr = Trainer(tr_cfg, shape, tcfg, mesh=mesh, device="cuda")
+    def train_leg(shape):
+        """The tensor-parallel trainer on a (data, model) mesh (weights and
+        state laid out by their specs, FSDP over 'data'), held to the
+        one-rank ``Trainer``; its first step counted on every rank."""
+        m = (mesh if shape == DIST_MESH else
+             MeshPlan("tp", data=shape[0], model=shape[1]).build("cuda"))
+        tshape, tcfg = _dist_train_setup(tr_cfg)
+        tr = Trainer(tr_cfg, tshape, tcfg, mesh=m, device="cuda")
         state = tr.init_state(SEED)
         # the round trip's kernel launches: one per BLOCK of each leaf's
         # block (row-aligned: the leaf over the axes that split its first
@@ -2784,16 +2817,38 @@ def _dist_rank(d, res):
                           if isinstance(q, Shard))
             n = p.numel()
             if dims and C._row_aligned(tuple(p.shape), tuple(p.placements),
-                                       mesh, dims[0]):
+                                       m, dims[0]):
                 n = shardctx.local(p).shape[dims[0]] * n // p.shape[dims[0]]
             pieces += -(-n // BLOCK)
+        gc.collect()
         torch.cuda.empty_cache()
         resident = torch.cuda.memory_allocated()
         share = _share(state)
+        # the parameters' share by their resolved specs, from the shapes
+        shapes, specs = T.model_pspecs(tr_cfg)
+        flat = pytree.flatten_with_paths(specs)
+        spec_share = 0
+        for k, v in pytree.flatten_with_paths(shapes).items():
+            rs = resolve.resolve_spec_for(tuple(v.shape), flat[k], m)
+            split = math.prod(shardctx.axis_size(a, m) for e in rs
+                              for a in ((e,) if isinstance(e, str) else
+                                        (e or ())))
+            spec_share += v.numel() * v.element_size() // split
+        counted = count_first_step(tr)
         out = tr.train(DIST_TRAIN[3], state=state)
-        got = [(m.loss, m.grad_norm) for m in out["history"]]
-        res["_params"] = out["state"].params     # for the restore leg
-        return dict(loss=[g[0] for g in got], ref_loss=[w[0] for w in
+        sc = counted["sc"]
+        hist = out["history"]
+        got = [(x.loss, x.grad_norm) for x in hist]
+        if shape == DIST_MESH:
+            res["_params"] = out["state"].params     # for the restore leg
+        params = out["state"].params
+        out = state = None
+        return dict(mesh=list(shape),
+                    count=dict(flops=sc.flops, coll=dict(sc.coll_breakdown),
+                               by_op=dict(sc.flops_by_op)),
+                    weights=_tp_weights(params, tr_cfg, m),
+                    param_bytes=_share(params), spec_share_bytes=spec_share,
+                    loss=[g[0] for g in got], ref_loss=[w[0] for w in
                                                         ref["train"]],
                     grad_norm=[g[1] for g in got],
                     ref_grad_norm=[w[1] for w in ref["train"]],
@@ -2802,7 +2857,7 @@ def _dist_rank(d, res):
                     norm_rel=max(abs(g[1] - w[1]) / w[1] for g, w in
                                  zip(got, ref["train"])),
                     limit=DIST_TRAIN_TOL, norm_limit=DIST_NORM_REL,
-                    step_s=[m.dt for m in out["history"]],
+                    step_s=[x.dt for x in hist],
                     quantize_expected=pieces * DIST_TRAIN[3],
                     resident_bytes=resident, share_bytes=share)
 
@@ -2872,8 +2927,9 @@ def _dist_rank(d, res):
     legs = [("moe", moe_leg)]
     legs += [(name, lambda shape=shape: decode_leg(shape))
              for name, shape in DIST_TP]
-    legs += [("train", train_leg), ("compress", compress_leg),
-             ("restore", restore_leg)]
+    legs += [(name, lambda shape=shape: train_leg(shape))
+             for name, shape in DIST_TRAIN_TP]
+    legs += [("compress", compress_leg), ("restore", restore_leg)]
     for name, fn in legs:
         _leg(name, fn, res)
     dist.barrier()
@@ -2893,6 +2949,7 @@ def dist_phase(smi):
     d.mkdir(parents=True)
     ref = dist_references(d)
     whole = ref["decode_count"]     # the TP legs' unsharded count
+    whole_train = ref["train_count"]
     del ref
     released(0)
     ctx = mp.get_context("spawn")
@@ -2921,13 +2978,14 @@ def dist_phase(smi):
     outs.sort(key=lambda o: o["rank"])
     by_path, recs = {}, {}
     tp_legs = [name for name, _ in DIST_TP]
-    for leg in ["moe"] + tp_legs + ["train", "compress", "restore"]:
+    train_legs = [name for name, _ in DIST_TRAIN_TP]
+    for leg in ["moe"] + tp_legs + train_legs + ["compress", "restore"]:
         per = [o[leg] for o in outs]
         by_path[f"dist:{leg}"] = {k: sum(p["launches"][k] for p in per)
                                   for k in per[0]["launches"]}
         recs[leg] = per
-    moe, tr, cmp_, rst = (recs[k] for k in ("moe", "train", "compress",
-                                            "restore"))
+    moe, cmp_, rst = (recs[k] for k in ("moe", "compress", "restore"))
+    tr = [p for k in train_legs for p in recs[k]]
     for p in moe:
         assert p["diff"] <= p["limit"], p
         assert p["dropped"] == 0.0 and p["load_diff"] <= DIST_LOAD_TOL, p
@@ -2969,8 +3027,46 @@ def dist_phase(smi):
                        for q_ in ("q0", "q1")},
             run_s=[p["run_s"] for p in dec], card=smi)
         log(f"dist:{leg}:tp", json.dumps(tp_lines[leg]))
-    for p in tr:
-        assert p["diff"] <= p["limit"] and p["norm_rel"] <= p["norm_limit"], p
+    for (leg, shape), per in zip(DIST_TRAIN_TP,
+                                 (recs[k] for k in train_legs)):
+        n = shape[1]
+        for p in per:
+            assert p["diff"] <= p["limit"], (leg, p["loss"], p["ref_loss"])
+            assert p["norm_rel"] <= p["norm_limit"], (
+                leg, p["grad_norm"], p["ref_grad_norm"])
+            # each rank computes a quarter of the whole batch's step: its
+            # rows (1 / data) of its heads, columns and vocabulary (1 /
+            # model), forward, recomputation and backward
+            ratio = p["count"]["flops"] / whole_train["flops"]
+            assert abs(ratio * DIST_RANKS - 1) <= TP_FLOPS_REL, (leg, ratio)
+            for k, (mine, full) in p["weights"].items():
+                assert mine * (n if k in TP_SPLIT else 1) == full, (leg, k)
+            assert p["param_bytes"] == p["spec_share_bytes"], (leg, p)
+        tp_lines[leg] = dict(
+            mesh=list(shape), rank_flops=[p["count"]["flops"] for p in per],
+            whole_batch_flops=whole_train["flops"],
+            ratio=[p["count"]["flops"] / whole_train["flops"] for p in per],
+            rank_flops_by_op=per[0]["count"]["by_op"],
+            whole_flops_by_op=whole_train["by_op"],
+            coll_bytes=[p["count"]["coll"] for p in per],
+            gathered_bytes=[sum(m for m, _ in p["weights"].values())
+                            for p in per],
+            gathered_whole_bytes=sum(f for _, f in
+                                     per[0]["weights"].values()),
+            gathered_by_leaf=per[0]["weights"],
+            param_bytes=[p["param_bytes"] for p in per],
+            spec_share_bytes=[p["spec_share_bytes"] for p in per],
+            resident_bytes=[p["resident_bytes"] for p in per],
+            state_bytes=[p["share_bytes"] for p in per],
+            loss=per[0]["loss"], ref_loss=per[0]["ref_loss"],
+            grad_norm=per[0]["grad_norm"],
+            ref_grad_norm=per[0]["ref_grad_norm"],
+            max_diff=max(p["diff"] for p in per),
+            max_norm_rel=max(p["norm_rel"] for p in per),
+            step_s=[p["step_s"] for p in per],
+            wall_s=[p["wall_s"] for p in per],
+            peak_gb=[p["peak_gb"] for p in per], card=smi)
+        log(f"dist:{leg}:tp", json.dumps(tp_lines[leg]))
     for p in cmp_:
         assert p["diff"] <= p["limit"], p
     for p in rst:
@@ -3019,20 +3115,10 @@ def dist_phase(smi):
             peak_gb=[p["peak_gb"] for p in recs[leg]])
            for leg, shape in DIST_TP},
         tensor_parallel=tp_lines,
-        train=dict(arch="qwen3-14b", layers=DIST_TRAIN[0],
-                   batch=DIST_TRAIN[1], seq=DIST_TRAIN[2],
-                   steps=DIST_TRAIN[3], loss=tr[0]["loss"],
-                   ref_loss=tr[0]["ref_loss"],
-                   grad_norm=tr[0]["grad_norm"],
-                   ref_grad_norm=tr[0]["ref_grad_norm"],
-                   max_diff=max(p["diff"] for p in tr),
-                   max_norm_rel=max(p["norm_rel"] for p in tr),
-                   limit=DIST_TRAIN_TOL, norm_limit=DIST_NORM_REL,
-                   step_s=[p["step_s"] for p in tr],
-                   resident_bytes=[p["resident_bytes"] for p in tr],
-                   share_bytes=[p["share_bytes"] for p in tr],
-                   wall_s=[p["wall_s"] for p in tr],
-                   peak_gb=[p["peak_gb"] for p in tr]),
+        train_run=dict(arch="qwen3-14b", layers=DIST_TRAIN[0],
+                       batch=DIST_TRAIN[1], seq=DIST_TRAIN[2],
+                       steps=DIST_TRAIN[3], limit=DIST_TRAIN_TOL,
+                       norm_limit=DIST_NORM_REL),
         compress=dict(leaf=list(DIST_COMPRESS),
                       max_diff=max(p["diff"] for p in cmp_),
                       limit=cmp_[0]["limit"],

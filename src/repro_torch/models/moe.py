@@ -18,6 +18,12 @@ Counterpart of ``repro/models/moe.py``.  Two execution paths:
   all-gathered per layer; in training that gather's transpose is a
   reduce-scatter (all-reduce + slice, ``parallel.collectives``).
 
+The always-on branches (deepseek's shared experts, arctic's dense
+residual) run outside the expert path in both.  Under a mesh with model
+ranks every entry point hands them over as this rank's 'model' shards
+(``tp``): Megatron's split of ``layers.mlp``, their partial sums added over
+'model', as GSPMD divides the reference's by their ``mlp_pspecs``.
+
 The expert products are plain batched matmuls, as the reference's are
 plain einsums outside any Pallas kernel.  Nothing here syncs with the host
 or has a data-dependent shape (no ``.item()``, ``nonzero`` or boolean
@@ -122,19 +128,22 @@ def _expert_ffn(bank, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.matmul(h, bank["wo"])
 
 
-def _extras(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Shared experts + dense residual (dense compute)."""
+def _extras(params, x: torch.Tensor, cfg: ModelConfig,
+            tp: bool = False) -> torch.Tensor:
+    """Shared experts + dense residual (dense compute).  With ``tp`` their
+    weights are this rank's 'model' shards (``layers.mlp``'s Megatron
+    split), each branch's partial sums added over 'model'."""
     y = torch.zeros_like(x)
     if "shared" in params:
-        y = y + layers.mlp(params["shared"], x, cfg.activation)
+        y = y + layers.mlp(params["shared"], x, cfg.activation, tp=tp)
     if "dense" in params:
-        y = y + layers.mlp(params["dense"], x, cfg.activation)
+        y = y + layers.mlp(params["dense"], x, cfg.activation, tp=tp)
     return y
 
 
-def moe_dense(params, x: torch.Tensor,
-              cfg: ModelConfig) -> Tuple[torch.Tensor, MoEAux]:
-    """Capacity-free: all experts on all tokens."""
+def moe_dense(params, x: torch.Tensor, cfg: ModelConfig,
+              tp: bool = False) -> Tuple[torch.Tensor, MoEAux]:
+    """Capacity-free: all experts on all tokens (``tp``: :func:`_extras`')."""
     B, S, D = x.shape
     x2d = x.reshape(-1, D)
     T_ = x2d.shape[0]
@@ -142,7 +151,7 @@ def moe_dense(params, x: torch.Tensor,
     all_out = _expert_ffn(params["experts"], x2d[None], cfg)   # (E, T, D)
     gathered = all_out[top_ids.T, torch.arange(T_, device=x.device)[None]]
     y = torch.einsum("ktd,tk->td", gathered, top_w.to(x.dtype))
-    y = y.reshape(B, S, D) + _extras(params, x, cfg)
+    y = y.reshape(B, S, D) + _extras(params, x, cfg, tp)
     return y, MoEAux(aux_loss=aux, load=load,
                      dropped=torch.zeros((), device=x.device))
 
@@ -221,11 +230,12 @@ def _mean_over_batch(aux: MoEAux) -> MoEAux:
     return MoEAux(*(collectives.pmean(t, bat).mean(dim=0) for t in aux))
 
 
-def moe_sharded(params, x: torch.Tensor,
-                cfg: ModelConfig) -> Tuple[torch.Tensor, MoEAux]:
+def moe_sharded(params, x: torch.Tensor, cfg: ModelConfig,
+                tp: bool = False) -> Tuple[torch.Tensor, MoEAux]:
     """EP over ``model``, token-parallel over the batch axes, FSDP over
     ``data``.  ``x`` holds this rank's rows; the capacity counts them (the
-    reference's ``t_local``)."""
+    reference's ``t_local``).  ``tp``: the always-on branches on 'model'
+    shards (:func:`_extras`)."""
     B, S, D = x.shape
     m = cfg.moe
     mesh = shardctx.current_mesh()
@@ -242,7 +252,7 @@ def moe_sharded(params, x: torch.Tensor,
                             None, None)
         if mesh is not None:
             aux = _mean_over_batch(MoEAux(*(t[None] for t in aux)))
-        y = y + _extras(params, x2d, cfg)
+        y = y + _extras(params, x2d, cfg, tp)
         return y.reshape(B, S, D), aux
 
     n_model = shardctx.axis_size("model")
@@ -258,19 +268,23 @@ def moe_sharded(params, x: torch.Tensor,
     y, aux = _moe_local_mapped(routed, x2d, cfg, e_start, e_local, capacity,
                                "model", "data" if has_fsdp else None)
     # always-on branches (shared experts / arctic dense residual) run as
-    # plain matmuls outside the expert path
-    y = y + _extras(params, x2d, cfg)
+    # plain matmuls outside the expert path, on 'model' shards with ``tp``
+    # as GSPMD divides the reference's by their specs
+    y = y + _extras(params, x2d, cfg, tp)
     return y.reshape(B, S, D), _mean_over_batch(aux)
 
 
 def moe_forward(params, x: torch.Tensor, cfg: ModelConfig,
-                production: bool = True) -> Tuple[torch.Tensor, MoEAux]:
+                production: bool = True,
+                tp: bool = False) -> Tuple[torch.Tensor, MoEAux]:
     """``moe_sharded`` under a mesh with ``production``, else
     ``moe_dense`` (under a mesh its aux terms are averaged over the batch
-    axes, as the reference's global ones are)."""
+    axes, as the reference's global ones are).  ``tp``: the shared experts
+    and dense residual come as this rank's 'model' shards
+    (``transformer._tp_block_params``)."""
     if shardctx.current_mesh() is None:
         return moe_dense(params, x, cfg)
     if production:
-        return moe_sharded(params, x, cfg)
-    y, aux = moe_dense(params, x, cfg)
+        return moe_sharded(params, x, cfg, tp)
+    y, aux = moe_dense(params, x, cfg, tp)
     return y, _mean_over_batch(MoEAux(*(t[None] for t in aux)))

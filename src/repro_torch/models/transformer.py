@@ -36,9 +36,9 @@ logits are never materialized.
 
 Under a device mesh (``parallel.shardctx.use_mesh``) each rank runs these
 entry points on its own rows of the batch, with parameters held as
-``DTensor``s laid out by :func:`model_pspecs`.  Each block gathers its
-weights as it runs (:func:`_pin_block_params`, FSDP) and computes whole on
-the rank's rows; under ``Runtime.production`` the MoE FFN runs the
+``DTensor``s laid out by :func:`model_pspecs`.  Each block gathers the
+weights it computes whole with as it runs (:func:`_pin_block_params`,
+FSDP); under ``Runtime.production`` the MoE FFN runs the
 reference's expert-parallel ``moe_sharded`` and decode attention the
 sequence-sharded ring (``attention.decode_attention``).  ``loss_fn``
 returns the loss of the whole batch (averaged over the batch axes), as the
@@ -46,14 +46,19 @@ reference's does; ``prefill`` and ``decode_step`` return the rank's rows'
 logits.  Under ``Runtime.seq_shard`` the residual stream lives S-sharded
 over ``model`` between sublayers (Megatron-SP).
 
-The serving entry points ``prefill`` and ``decode_step`` are tensor-parallel
-where the 'model' axis has ranks, as GSPMD partitions the reference's
-layers by their specs (Megatron): the self-attention, the dense MLP, the
-embedding lookup and the LM head take each weight as its resolved spec has
-it, this rank's 'model' shard or whole (:func:`_tp_block_params`,
-:func:`_serving_table`), and their partial sums add over 'model'.  They
-pass that choice down through the private ``_tp`` keyword; ``loss_fn``,
-``logits_fn`` and the trainer do not, and compute whole layers.
+Every entry point (``loss_fn``, ``logits_fn``, ``prefill``, ``decode_step``)
+is tensor-parallel where the 'model' axis has ranks, as GSPMD partitions
+the reference's layers by their specs (Megatron): the self-attention, the
+dense MLP, the MoE's shared experts and dense residual, the embedding
+lookup and the LM head take each weight as its resolved spec has it, this
+rank's 'model' shard or whole (:func:`_tp_block_params`,
+:func:`_table_shard`), and their partial sums add over 'model'.  The LM
+loss is vocab-parallel: each rank scores its V / n logits and the
+log-sum-exp and the picked logit add over 'model'
+(:func:`_vocab_parallel_nll`), so no rank holds (B, c, V) fp32 logits.  The
+SSM and RG-LRU mixers, whisper's cross-attention and a self-attention
+whose heads the model axis does not divide compute whole on the rank's
+rows; the routed experts keep ``moe_sharded``'s expert-parallel layout.
 """
 from __future__ import annotations
 
@@ -297,45 +302,54 @@ def _pin_block_params(params: Dict[str, Any],
     return pin(params)
 
 
-def _tp_serving(tp: bool) -> bool:
-    """The tensor-parallel serving path: asked for (``prefill`` and
-    ``decode_step`` ask) under a mesh whose 'model' axis has ranks."""
-    return tp and shardctx.axis_size("model") > 1
+def _tensor_parallel() -> bool:
+    """The tensor-parallel path of every entry point: under a mesh whose
+    'model' axis has ranks."""
+    return shardctx.axis_size("model") > 1
 
 
 def _tp_block_params(params: Dict[str, Any], cfg: ModelConfig, kind: str,
                      production: bool = True):
-    """(weights, tp): a block's weights for the tensor-parallel serving
-    path, and which of its sublayers (``"mixer"``, ``"ffn"``) compute on
-    'model' shards.
+    """(weights, tp): a block's weights for the tensor-parallel path, and
+    which of its sublayers (``"mixer"``, ``"ffn"``) compute on 'model'
+    shards.
 
-    The self-attention (an ``"attn"`` block's mixer) and the dense MLP take
-    each leaf as its resolved spec has it (``shardctx.model_dim`` on the
-    specs of ``block_pspecs``): a leaf the spec splits over 'model' as
-    this rank's 'model' shard, gathered over 'data' only
-    (``shardctx.model_shard``); a leaf the spec replicates whole.  The
-    attention computes whole, its weights gathered, where the model axis
-    does not divide its heads (qwen3-14b's 40 on 16 model ranks), as does
-    an MLP whose ``d_ff`` its spec leaves whole.  Everything else (norms,
-    SSM and RG-LRU mixers, whisper's cross-attention, the MoE FFN with its
-    shared experts) is :func:`_pin_block_params`'s.
+    The self-attention (an ``"attn"`` block's mixer), the dense MLP and an
+    MoE FFN's always-on branches (deepseek's shared experts ``"shared"``,
+    arctic's dense residual ``"dense"``) take each leaf as its resolved
+    spec has it (``shardctx.model_dim`` on the specs of ``block_pspecs``):
+    a leaf the spec splits over 'model' as this rank's 'model' shard,
+    gathered over 'data' only (``shardctx.model_shard``); a leaf the spec
+    replicates whole.  The attention computes whole, its weights gathered,
+    where the model axis does not divide its heads (qwen3-14b's 40 on 16
+    model ranks), as does an MLP whose ``d_ff`` its spec leaves whole (for
+    an MoE FFN: unless every always-on branch splits, all compute whole).
+    Everything else (norms, SSM and RG-LRU mixers, whisper's
+    cross-attention, the router and the routed experts' bank, which
+    ``moe_sharded`` lays out by expert) is :func:`_pin_block_params`'s.
     """
     specs = block_pspecs(cfg, kind, cross="cross_attn" in params)
     n = shardctx.axis_size("model")
     out: Dict[str, Any] = {}
     tp = {"mixer": False, "ffn": False}
 
-    def dims_of(name):
-        return {k: shardctx.model_dim(v, specs[name][k])
-                for k, v in params[name].items()}
+    def dims_of(tree, spec):
+        return {k: shardctx.model_dim(v, spec[k]) for k, v in tree.items()}
 
-    def take(name, dims):
+    def take(tree, dims):
         return {k: (shardctx.gather(v) if dims[k] is None
                     else shardctx.model_shard(v, dims[k]))
-                for k, v in params[name].items()}
+                for k, v in tree.items()}
+
+    def mlp_dims(tree, spec, what):
+        dims = dims_of(tree, spec)
+        if len({d is None for d in dims.values()}) > 1:
+            raise ValueError(f"tensor-parallel {what}: specs split {dims} "
+                             f"over 'model' inconsistently")
+        return dims
 
     if kind == "attn":
-        dims = dims_of("mixer")
+        dims = dims_of(params["mixer"], specs["mixer"])
         if (dims["wq"] is None) != (dims["wo"] is None) or \
                 (dims["wk"] is None) != (dims["wv"] is None):
             raise ValueError(f"tensor-parallel attention: specs split "
@@ -343,25 +357,30 @@ def _tp_block_params(params: Dict[str, Any], cfg: ModelConfig, kind: str,
         heads_divide = cfg.num_heads % n == 0 and (
             dims["wk"] is None or cfg.num_kv_heads % n == 0)
         if dims["wq"] is not None and heads_divide:
-            out["mixer"], tp["mixer"] = take("mixer", dims), True
+            out["mixer"], tp["mixer"] = take(params["mixer"], dims), True
     if "ffn" in params and cfg.moe is None:
-        dims = dims_of("ffn")
-        if len({d is None for d in dims.values()}) > 1:
-            raise ValueError(f"tensor-parallel MLP: specs split {dims} over "
-                             f"'model' inconsistently")
+        dims = mlp_dims(params["ffn"], specs["ffn"], "MLP")
         if dims["wo"] is not None:
-            out["ffn"], tp["ffn"] = take("ffn", dims), True
+            out["ffn"], tp["ffn"] = take(params["ffn"], dims), True
+    elif "ffn" in params:
+        ffn = params["ffn"]
+        dims = {k: mlp_dims(ffn[k], specs["ffn"][k], f"MoE {k}")
+                for k in ("shared", "dense") if k in ffn}
+        if dims and all(d["wo"] is not None for d in dims.values()):
+            routed = {k: v for k, v in ffn.items() if k not in dims}
+            out["ffn"] = {**_pin_block_params(routed, production),
+                          **{k: take(ffn[k], d) for k, d in dims.items()}}
+            tp["ffn"] = True
     rest = {k: v for k, v in params.items() if k not in out}
     out.update(_pin_block_params(rest, production))
     return out, tp
 
 
-def _block_weights(params, cfg: ModelConfig, kind: str, rt: Runtime,
-                   tp: bool):
+def _block_weights(params, cfg: ModelConfig, kind: str, rt: Runtime):
     """(weights, tp) of a block: :func:`_tp_block_params` on the
-    tensor-parallel serving path, else :func:`_pin_block_params` with no
-    sublayer on shards."""
-    if _tp_serving(tp):
+    tensor-parallel path, else :func:`_pin_block_params` with no sublayer
+    on shards."""
+    if _tensor_parallel():
         return _tp_block_params(params, cfg, kind, rt.production)
     return (_pin_block_params(params, rt.production),
             {"mixer": False, "ffn": False})
@@ -394,21 +413,15 @@ def _whole(tree: Dict[str, Any], keys=None) -> Dict[str, torch.Tensor]:
     return {k: shardctx.gather(tree[k]) for k in (keys or tree)}
 
 
-def _unembedding(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """The table ``layers.unembed`` reads, gathered."""
-    return _whole(params["embed"],
-                  ("table",) if cfg.tie_embeddings else ("out",))
-
-
-def _serving_table(params, cfg: ModelConfig, key: str, tp: bool):
+def _table_shard(params, cfg: ModelConfig, key: str):
     """(weight, split) of the embedding table ``key`` (``"table"`` (V, D) or
-    ``"out"`` (D, V)) for ``prefill`` and ``decode_step``.  On the
-    tensor-parallel serving path a table its resolved spec splits over
-    'model' comes as this rank's shard (the spec splits D of ``table``, V
-    of ``out``); otherwise, or where the model axis does not divide that
-    dimension, whole."""
+    ``"out"`` (D, V)) for the entry points.  On the tensor-parallel path a
+    table its resolved spec splits over 'model' comes as this rank's shard
+    (the spec splits D of ``table``, V of ``out``); otherwise, or where the
+    model axis does not divide that dimension (whisper-base's 51,865-entry
+    ``out``), whole."""
     leaf = params["embed"][key]
-    if not _tp_serving(tp):
+    if not _tensor_parallel():
         return shardctx.gather(leaf), False
     dim = shardctx.model_dim(
         leaf, layers.embedding_pspecs(cfg.tie_embeddings)[key])
@@ -420,32 +433,31 @@ def _serving_table(params, cfg: ModelConfig, key: str, tp: bool):
     return shardctx.model_shard(leaf, dim), True
 
 
-def _serving_logits(params, x, cfg: ModelConfig, tp: bool,
-                    tied=None) -> torch.Tensor:
-    """The LM head of ``prefill`` and ``decode_step``: whole logits on
-    every rank, from ``out`` (column-parallel where split) or the tied
-    table (row-parallel where split; ``tied``: its :func:`_serving_table`
-    pair when the caller already holds it)."""
+def _lm_logits(params, x, cfg: ModelConfig, tied=None) -> torch.Tensor:
+    """The LM head of ``logits_fn``, ``prefill`` and ``decode_step``: whole
+    logits on every rank, from ``out`` (column-parallel where split) or the
+    tied table (row-parallel where split; ``tied``: its
+    :func:`_table_shard` pair when the caller already holds it)."""
     tie = cfg.tie_embeddings
     key = "table" if tie else "out"
-    w, split = tied if tied is not None else _serving_table(params, cfg,
-                                                            key, tp)
+    w, split = tied if tied is not None else _table_shard(params, cfg, key)
     return layers.unembed({key: w}, x, tie, tp=split)
 
 
 def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
                   kind: str, rt: Runtime, *, causal: bool = True,
                   build_cache: bool = False,
-                  cache_window: Optional[int] = None, _tp: bool = False):
+                  cache_window: Optional[int] = None):
     """Full-sequence block. Returns (x, aux_or_None, cache_or_None).
 
     ``aux`` is the MoE FFN's routing telemetry, ``None`` for a block
     without one (the reference returns zeros there; ``forward_hidden``
-    starts its sum from zeros, so the total is the same).  ``_tp`` (the
-    serving entry points') computes the self-attention and dense MLP on
-    this rank's 'model' shards (:func:`_tp_block_params`).
+    starts its sum from zeros, so the total is the same).  Under a mesh with
+    model ranks the self-attention, the dense MLP and the MoE's always-on
+    branches compute on this rank's 'model' shards
+    (:func:`_tp_block_params`).
     """
-    params, tp = _block_weights(params, cfg, kind, rt, _tp)
+    params, tp = _block_weights(params, cfg, kind, rt)
     seq = _seq_sharded(rt)
 
     def gather_seq(h):
@@ -501,7 +513,7 @@ def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
                                       use_kernel=k))
         if cfg.moe is not None:
             y, aux = moe.moe_forward(params["ffn"], h, cfg,
-                                     production=rt.production)
+                                     production=rt.production, tp=tp["ffn"])
         else:
             y = layers.mlp(params["ffn"], h, cfg.activation, tp=tp["ffn"])
         x = x + scatter_seq(y)
@@ -510,10 +522,10 @@ def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
 
 
 def block_decode(params, state, x_new, pos, cfg: ModelConfig, kind: str,
-                 rt: Runtime, rope_pos=None, _tp: bool = False):
+                 rt: Runtime, rope_pos=None):
     """One-token block step. x_new: (B,1,D). Returns (x, new_state).
-    ``_tp`` as in :func:`block_forward`."""
-    params, tp = _block_weights(params, cfg, kind, rt, _tp)
+    Tensor-parallel as :func:`block_forward`."""
+    params, tp = _block_weights(params, cfg, kind, rt)
     k = rt.use_kernels
     h = layers.rmsnorm(params["norm1"], x_new, cfg.norm_eps, use_kernel=k)
     new_state = dict(state)
@@ -542,7 +554,7 @@ def block_decode(params, state, x_new, pos, cfg: ModelConfig, kind: str,
         h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps, use_kernel=k)
         if cfg.moe is not None:
             y, _ = moe.moe_forward(params["ffn"], h, cfg,
-                                   production=rt.production)
+                                   production=rt.production, tp=tp["ffn"])
         else:
             y = layers.mlp(params["ffn"], h, cfg.activation, tp=tp["ffn"])
         x = x + y
@@ -637,18 +649,18 @@ def _mrope_positions(B: int, S: int, n_vision: int,
 
 
 def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                 rt: Runtime = DEFAULT_RT, _tp: bool = False):
+                 rt: Runtime = DEFAULT_RT):
     """-> (x (B,S,D), positions, encoder_out_or_None).
 
     ``positions`` is (B, S), (B, 3, S) under M-RoPE, or ``None`` for
-    whisper's sinusoidal positions.  ``_tp`` looks tokens up in this
-    rank's 'model' shard of the table (D / n of each embedding, all-gathered
-    over 'model') and reaches whisper's encoder (:func:`block_forward`).
+    whisper's sinusoidal positions.  Under a mesh with model ranks, tokens
+    are looked up in this rank's 'model' shard of the table (D / n of each
+    embedding, all-gathered over 'model').
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
-    table, split = _serving_table(params, cfg, "table", _tp)
+    table, split = _table_shard(params, cfg, "table")
     x = layers.embed({"table": table}, tokens, tp=split)
     encoder_out = None
     if cfg.encoder_layers:
@@ -656,7 +668,7 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         enc = batch["audio_embeds"]
         enc = enc + layers.sinusoidal_positions(
             enc.shape[1], cfg.d_model, dev).to(enc.dtype)
-        encoder_out = encode(params, enc, cfg, rt, _tp=_tp)
+        encoder_out = encode(params, enc, cfg, rt)
         x = x + layers.sinusoidal_positions(S, cfg.d_model, dev).to(x.dtype)
         positions = None                      # sinusoidal, no RoPE
     elif cfg.vision_stub and "vision_embeds" in batch:
@@ -673,7 +685,7 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def encode(params, enc_in: torch.Tensor, cfg: ModelConfig,
-           rt: Runtime = DEFAULT_RT, _tp: bool = False) -> torch.Tensor:
+           rt: Runtime = DEFAULT_RT) -> torch.Tensor:
     """Whisper encoder: bidirectional attention over frame embeddings.
 
     The reference's ``lax.scan`` over the stacked ``params["encoder"]``
@@ -683,7 +695,7 @@ def encode(params, enc_in: torch.Tensor, cfg: ModelConfig,
 
     def one(p, x):
         return block_forward(p, x, None, None, cfg, "attn", rt,
-                             causal=False, _tp=_tp)[0]
+                             causal=False)[0]
 
     seq = _seq_sharded(rt)
     x = _seq_scatter(enc_in) if seq else enc_in
@@ -701,7 +713,7 @@ def encode(params, enc_in: torch.Tensor, cfg: ModelConfig,
 
 def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
                    rt: Runtime, build_cache: bool = False,
-                   cache_window: Optional[int] = None, _tp: bool = False):
+                   cache_window: Optional[int] = None):
     """Runs the decoder stack. Returns (hidden, aux, (caches_rep, caches_rest)).
 
     Each cache part is ``None`` unless ``build_cache``; ``caches_rep`` has
@@ -709,7 +721,7 @@ def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
     blocks' telemetry (zeros without MoE).  Each block is checkpointed
     under ``rt.remat`` unless it builds a cache.  Under ``seq_shard`` the
     stream is cut into this rank's S chunk before the first block and
-    gathered after the last.  ``_tp`` as in :func:`block_forward`.
+    gathered after the last.
     """
     pattern = _pattern(cfg)
     rt = _stream_rt(rt, x.shape[1])
@@ -726,7 +738,7 @@ def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
         def run(p, x):
             return block_forward(p, x, positions, encoder_out, cfg, kind, rt,
                                  causal=True, build_cache=build_cache,
-                                 cache_window=cache_window, _tp=_tp)
+                                 cache_window=cache_window)
 
         x, a, c = _remat(run, p, x) if remat else run(p, x)
         if a is not None:
@@ -757,20 +769,59 @@ def forward_hidden(params, x, positions, encoder_out, cfg: ModelConfig,
 
 
 def logits_fn(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT):
-    """Full (B,S,V) logits and the MoE aux — smoke-test scale only."""
+    """Full (B,S,V) logits and the MoE aux — smoke-test scale only.  Under
+    a mesh, the rank's rows, whole over V (:func:`_lm_logits`)."""
     x, positions, enc = embed_inputs(params, batch, cfg, rt)
     x, aux, _ = forward_hidden(params, x, positions, enc, cfg, rt)
-    return layers.unembed(_unembedding(params, cfg), x,
-                          cfg.tie_embeddings), aux
+    return _lm_logits(params, x, cfg), aux
 
 
 # ---------------------------------------------------------------------------
 # Training loss (chunked over the sequence)
 # ---------------------------------------------------------------------------
 
-def _chunk_nll(embed, xc, tc, vc, tie: bool) -> torch.Tensor:
-    """Summed NLL of one chunk: xc (B, c, D), tc (B, c), vc (c,) validity."""
-    lg = layers.unembed(embed, xc, tie).float()
+def _vocab_parallel_nll(lg, tc, vc) -> torch.Tensor:
+    """Summed NLL from this rank's V / n logits lg (B, c, V / n) fp32, the
+    rank's vocabulary ``[rank * V / n, (rank + 1) * V / n)``: the
+    reference's logits sharded ``(batch, None, model)``.  The log-sum-exp
+    adds its sums over 'model' about a shift that is their all-reduced
+    maximum (outside autograd: its value cancels); the target's logit is
+    taken on the rank whose range holds it, zero elsewhere, and added over
+    'model'."""
+    m = collectives.pmax(lg.amax(dim=-1), "model")              # (B, c)
+    sums = collectives.psum(torch.exp(lg - m[..., None]).sum(dim=-1),
+                            "model")
+    logz = m + torch.log(sums)
+    n = lg.shape[-1]
+    local = tc - shardctx.axis_index("model") * n
+    mine = (local >= 0) & (local < n)
+    picked = torch.gather(lg, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    picked = collectives.psum(torch.where(mine, picked,
+                                          torch.zeros_like(picked)), "model")
+    return torch.sum((logz - picked) * vc[None, :])
+
+
+def _chunk_nll(w, xc, tc, vc, tie: bool, split: bool) -> torch.Tensor:
+    """Summed NLL of one chunk: xc (B, c, D), tc (B, c), vc (c,) validity;
+    ``(w, split)`` the LM head's table as :func:`_table_shard` gives it.
+
+    Split ``out`` (D, V / n): the rank's V / n logits, column-parallel.
+    Split tied ``table`` (V, D / n): the row-parallel product, its partial
+    logits added over 'model', of which the rank keeps its V chunk
+    (all-reduce + slice).  Either way :func:`_vocab_parallel_nll`; where
+    the table is whole, or the model axis does not divide V, the NLL of
+    whole logits."""
+    if split and not tie:
+        lg = xc @ w
+    else:
+        lg = layers.unembed({"table" if tie else "out": w}, xc, tie,
+                            tp=split)
+        split = split and lg.shape[-1] % shardctx.axis_size("model") == 0
+        if split:
+            lg = shardctx.model_chunk(lg, -1)
+    lg = lg.float()
+    if split:
+        return _vocab_parallel_nll(lg, tc, vc)
     logz = torch.logsumexp(lg, dim=-1)                          # (B, c)
     picked = torch.gather(lg, -1, tc[..., None])[..., 0]
     return torch.sum((logz - picked) * vc[None, :])
@@ -781,7 +832,10 @@ def _chunked_lm_loss(params, x, tokens, cfg: ModelConfig, chunk: int):
 
     The reference's ``lax.scan`` over zero-padded chunks, summed in the
     same order; each chunk is checkpointed, so its fp32 logits live only
-    while that chunk's loss or gradient is computed.
+    while that chunk's loss or gradient is computed.  Under a mesh with
+    model ranks each chunk is vocab-parallel (:func:`_chunk_nll`); its
+    collectives rerun in the backward's recomputation, in the same order on
+    every rank.
     """
     B, S, D = x.shape
     n = S - 1
@@ -794,11 +848,12 @@ def _chunked_lm_loss(params, x, tokens, cfg: ModelConfig, chunk: int):
         tg = F.pad(tg, (0, pad))
     valid = (torch.arange(nc * c, device=x.device) < n).float()
     total = torch.zeros((), device=x.device)
-    embed = _unembedding(params, cfg)
+    tie = cfg.tie_embeddings
+    w, split = _table_shard(params, cfg, "table" if tie else "out")
     for i in range(nc):
         sl = slice(i * c, (i + 1) * c)
-        total = total + _remat(_chunk_nll, embed, xs[:, sl],
-                               tg[:, sl], valid[sl], cfg.tie_embeddings)
+        total = total + _remat(_chunk_nll, w, xs[:, sl], tg[:, sl],
+                               valid[sl], tie, split)
     return total / (B * n)
 
 
@@ -807,7 +862,8 @@ def loss_fn(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT):
     for an MoE model the load-balance loss (``moe_aux``), the mean expert
     load (``expert_load``, (E,)) and the dropped fraction, each averaged
     over the MoE layers.  Under a mesh ``batch`` holds this rank's rows and
-    the loss is the whole batch's, the mean over the batch axes."""
+    the loss is the whole batch's, the mean over the batch axes; the layers
+    and the LM loss are tensor-parallel over 'model' (module docstring)."""
     x, positions, enc = embed_inputs(params, batch, cfg, rt)
     x, aux, _ = forward_hidden(params, x, positions, enc, cfg, rt)
     lm = _chunked_lm_loss(params, x, batch["tokens"], cfg, rt.loss_chunk)
@@ -903,11 +959,11 @@ def prefill(params, batch, cfg: ModelConfig, rt: Runtime = DEFAULT_RT,
     side`` (``side = ceil(sqrt(V))``), so the state carries ``rope_offset
     = side - V`` for decode.
     """
-    x, positions, enc = embed_inputs(params, batch, cfg, rt, _tp=True)
+    x, positions, enc = embed_inputs(params, batch, cfg, rt)
     x, _, (caches_rep, caches_rest) = forward_hidden(
         params, x, positions, enc, cfg, rt, build_cache=True,
-        cache_window=window, _tp=True)
-    logits = _serving_logits(params, x[:, -1:], cfg, True)[:, 0]
+        cache_window=window)
+    logits = _lm_logits(params, x[:, -1:], cfg)[:, 0]
     B, S = batch["tokens"].shape
     dev = x.device
     offset = 0
@@ -932,7 +988,7 @@ def decode_step(params, state: DecodeState, new_tokens: torch.Tensor,
     pattern = _pattern(cfg)
     pos = state.pos
     rope_pos = pos + state.rope_offset
-    emb = _serving_table(params, cfg, "table", True)
+    emb = _table_shard(params, cfg, "table")
     x = layers.embed({"table": emb[0]}, new_tokens, tp=emb[1])  # (B,1,D)
     if cfg.encoder_layers:
         # sinusoidal position of the new token
@@ -942,18 +998,17 @@ def decode_step(params, state: DecodeState, new_tokens: torch.Tensor,
             for i, kind in enumerate(pattern):
                 st = _index(state.reps[i], r)
                 x, new = block_decode(_index(params["reps"][i], r), st, x,
-                                      pos, cfg, kind, rt, rope_pos=rope_pos,
-                                      _tp=True)
+                                      pos, cfg, kind, rt, rope_pos=rope_pos)
                 _write_(st, new)
     new_rest = []
     for j, p in enumerate(params.get("rest", ())):
         x, new = block_decode(p, state.rest[j], x, pos, cfg,
                               pattern[j % len(pattern)], rt,
-                              rope_pos=rope_pos, _tp=True)
+                              rope_pos=rope_pos)
         new_rest.append(new)
     x = layers.rmsnorm(_whole(params["final_norm"]), x, cfg.norm_eps,
                        use_kernel=rt.use_kernels)
-    logits = _serving_logits(params, x, cfg, True,
-                             emb if cfg.tie_embeddings else None)[:, 0]
+    logits = _lm_logits(params, x, cfg,
+                        emb if cfg.tie_embeddings else None)[:, 0]
     return logits, DecodeState(pos=pos + 1, rope_offset=state.rope_offset,
                                reps=state.reps, rest=tuple(new_rest))

@@ -171,7 +171,7 @@ for mesh_name, shape in (("2x2", (2, 2)), ("1x4", (1, 4))):
                 for sub in ("mixer", "ffn") for k, v in w[sub].items()}
             for k in ("table", "out"):
                 r["bytes"]["embed/" + k] = [
-                    T._serving_table(params, cfg, k, True)[0].numel(),
+                    T._table_shard(params, cfg, k)[0].numel(),
                     params["embed"][k].numel()]
             r["mlp"] = L.mlp(w["ffn"], x, cfg.activation, tp=tp["ffn"])
             r["attention"] = A.full_attention(w["mixer"], x, pos, cfg,
@@ -190,7 +190,7 @@ for mesh_name, shape in (("2x2", (2, 2)), ("1x4", (1, 4))):
                     o, _ = A.decode_attention(w["mixer"], c, xn, new_pos,
                                               cfg, tp=tp["mixer"])
                     r["decode_attention"] = o
-            r["lm_head"] = T._serving_logits(params, x[:, -1:], cfg, True)
+            r["lm_head"] = T._lm_logits(params, x[:, -1:], cfg)
             for k in ("mlp", "attention", "decode_attention", "lm_head"):
                 r[k] = r[k].tolist()
             for quant in (False, True):
