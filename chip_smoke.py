@@ -123,8 +123,10 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              a child process, started before the build (it needs only
              the host; no card is visible to it) and read here:
              qwen3-14b ``train_4k`` under the base, fused and scale_out
-             plans (256 ranks), deepseek-moe-16b ``decode_32k`` (256) and
-             qwen3-14b ``prefill_32k`` on the 2x16x16 mesh (512).  Each
+             plans (256 ranks), deepseek-moe-16b ``decode_32k`` (256),
+             qwen3-14b ``prefill_32k`` on the 2x16x16 mesh (512),
+             falcon-mamba-7b ``prefill_32k`` and recurrentgemma-9b
+             ``train_4k`` (256 each, their mixers on 'model' shards).  Each
              cell's roofline terms; the three qwen3 train profiles go to
              ``AmoebaController.choose_plan``, which prints its plan.  Every
              cell but whisper's prints its per-device FLOPs beside the
@@ -167,7 +169,21 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              batch's step (counted on ``meta``) within 2 %, its collective
              bytes by kind; layer 0's weights and both tables as the path
              takes them at the spec's share, the parameters' bytes at
-             their specs' share.  ``dist:compress``: ``compressed_psum_mean``
+             their specs' share.  ``dist:ssm`` (falcon-mamba-7b, 4 of 64
+             layers), ``dist:rglru`` (recurrentgemma-9b, 3 of 38: rglru,
+             rglru, attn) and ``dist:whisper`` (whisper-base, full depth,
+             1500 frames) on mesh (2, 2), full width, B8, with the
+             kernels: the tensor-parallel mixers and cross-attention,
+             prefill and 8 decode steps fed the unsharded run's greedy
+             tokens, every step's logits within the path-parity bound;
+             ``selective_scan`` / ``rglru_scan`` launched once a recurrent
+             layer a prefill on the rank's ``d_inner / 2`` / ``W / 2``
+             channels; each rank's recurrent states (and whisper's cross
+             caches, 750 of 1500 frames) the spec's shard; the counted
+             matmul FLOPs of a prefill and a decode step a quarter of the
+             unsharded whole batch's within 2 % (whisper: a quarter of all
+             but the LM head, which 2 does not divide, and half of that);
+             layer 0's weights at the spec's share.  ``dist:compress``: ``compressed_psum_mean``
              over 'data' on a (5120, 17408) fp32 leaf, within max|g| / 127
              x 1.5 of the true mean.  ``dist:restore``: the train leg's
              two layers (their stacked parameters) saved on the (2, 2)
@@ -2343,15 +2359,21 @@ DRYRUN_CELLS = (("qwen3-14b", "train_4k", False, "base"),
                 ("qwen3-14b", "train_4k", False, "fused"),
                 ("qwen3-14b", "train_4k", False, "scale_out"),
                 ("deepseek-moe-16b", "decode_32k", False, "base"),
-                ("qwen3-14b", "prefill_32k", True, "base"))
+                ("qwen3-14b", "prefill_32k", True, "base"),
+                ("falcon-mamba-7b", "prefill_32k", False, "base"),
+                ("recurrentgemma-9b", "train_4k", False, "base"))
 # each cell's per-device TFLOP on the tree before its entry point was
 # tensor-parallel (each rank computed whole layers on its rows), by (arch,
 # shape, plan): ``launch/dryrun.py`` counting the same cells on a CPU (the
 # count depends on shapes alone), the serving cells on the tree before the
 # tensor-parallel serving path, the train cells on the one before the
-# tensor-parallel trainer
+# tensor-parallel trainer, the falcon-mamba and recurrentgemma cells on the
+# one before their mixers were (SSM and RG-LRU mixers whole on every model
+# rank)
 DRYRUN_BEFORE_TP = {
     ("deepseek-moe-16b", "decode_32k", "base"): 0.024377294848,
+    ("falcon-mamba-7b", "prefill_32k", "base"): 882.907903688704,
+    ("recurrentgemma-9b", "train_4k", "base"): 1389.782697508864,
     ("qwen3-14b", "prefill_32k", "base"): 1841.68353234944,
     ("qwen3-14b", "train_4k", "base"): 7747.09020983296,
     ("qwen3-14b", "train_4k", "fused"): 15494.18041966592,
@@ -2467,10 +2489,31 @@ DIST_DECODE = (4, 8, 512, 2304, 8)  # qwen3-14b: layers, B, prompt, window,
 DIST_TP = (("decode", (2, 2)), ("decode_fused", (1, 4)))
 # every TP leaf's FLOPs on a rank: the whole batch's over data x model
 TP_FLOPS_REL = 0.02
-# the leaves qwen3-14b's specs split over 'model' on 2 and 4 model ranks
-# (8 KV heads: wk / wv too), by their path in layer 0 and the tables
+# the leaves the specs split over 'model' on 2 and 4 model ranks, by their
+# path in layer 0 and the tables: qwen3-14b's (8 KV heads: wk / wv too),
+# falcon-mamba's SSM mixer, recurrentgemma's RG-LRU mixer and whisper's
+# cross-attention (8 KV heads).  whisper's ``embed/out`` stays whole: 2
+# does not divide its 51,865 entries (``TP_WHOLE``)
 TP_SPLIT = ("mixer/wq", "mixer/wk", "mixer/wv", "mixer/wo", "ffn/wi_gate",
-            "ffn/wi_up", "ffn/wo", "embed/table", "embed/out")
+            "ffn/wi_up", "ffn/wo", "embed/table", "embed/out",
+            "mixer/in_proj", "mixer/conv_w", "mixer/x_proj", "mixer/dt_proj",
+            "mixer/dt_bias", "mixer/A_log", "mixer/D", "mixer/out_proj",
+            "mixer/in_x", "mixer/in_gate", "mixer/wa", "mixer/wx",
+            "mixer/ba", "mixer/lam", "mixer/out",
+            "cross_attn/wq", "cross_attn/wk", "cross_attn/wv",
+            "cross_attn/wo")
+TP_WHOLE = {"whisper": ("embed/out",)}
+# the tensor-parallel serving legs of the recurrent mixers and whisper's
+# cross-attention, on DIST_MESH, each held to its unsharded run: arch,
+# layers (None: all), B, prompt, window, decode steps, encoder frames
+DIST_FAMILIES = {
+    "ssm": ("falcon-mamba-7b", 4, 8, 512, 520, 8, 0),
+    "rglru": ("recurrentgemma-9b", 3, 8, 512, 520, 8, 0),
+    "whisper": ("whisper-base", None, 8, 64, 448, 8, 1500)}
+# each leg's kernel launches a rank makes in its run (one prefill)
+FAMILY_LAUNCHES = {"ssm": {"ssm_scan": 4, "flash_attention": 0},
+                   "rglru": {"rglru_scan": 2, "flash_attention": 1},
+                   "whisper": {"flash_attention": 12}}
 # qwen3-14b: layers, B, S, steps (2, not 3: a step moves ~14 GB a rank
 # through host memory, ~30 s on this layout)
 DIST_TRAIN = (2, 4, 512, 2)
@@ -2516,6 +2559,27 @@ def _dist_cfgs():
     dec = get_config("qwen3-14b").replace(num_layers=DIST_DECODE[0])
     tr = get_config("qwen3-14b").replace(num_layers=DIST_TRAIN[0])
     return moe, dec, tr
+
+
+def _family_cfg(leg):
+    """A ``DIST_FAMILIES`` leg's config: full width, bf16, its depth cut."""
+    from repro_torch.configs import get_config
+    arch, layers = DIST_FAMILIES[leg][:2]
+    cfg = get_config(arch)
+    return cfg if layers is None else cfg.replace(num_layers=layers)
+
+
+def _family_batch(cfg, leg, seed=9):
+    """A ``DIST_FAMILIES`` leg's prefill batch on the host: the prompts,
+    and whisper's frame embeddings."""
+    import torch
+    _, _, B, S, _, _, frames = DIST_FAMILIES[leg]
+    batch = {"tokens": _dist_tokens(cfg, B, S, seed)}
+    if frames:
+        g = torch.Generator().manual_seed(seed + 1)
+        batch["audio_embeds"] = torch.randn(
+            B, frames, cfg.d_model, generator=g).to(torch.bfloat16)
+    return batch
 
 
 def _dist_train_setup(cfg):
@@ -2576,6 +2640,28 @@ def dist_references(d):
         ref[f"decode_q{int(quant)}"] = dict(logits=seen, tokens=fed)
         del st, logits
     del params
+    for leg in DIST_FAMILIES:
+        cfg = _family_cfg(leg)
+        W, steps = DIST_FAMILIES[leg][4:6]
+        batch = _family_batch(cfg, leg)
+        ref[leg + "_count"] = _tp_count(
+            T.init_model(cfg, torch.Generator(), "meta"),
+            {k: torch.empty_like(v, device="meta") for k, v in batch.items()},
+            cfg, W)
+        params = T.init_model(cfg, torch.Generator("cuda").manual_seed(SEED),
+                              "cuda")
+        rt = T.Runtime(use_kernels=True)
+        with torch.no_grad():
+            logits, st = T.prefill(params, {k: v.cuda() for k, v in
+                                            batch.items()}, cfg, rt, window=W)
+            seen, fed = [logits.float().cpu()], []
+            for _ in range(steps):
+                tok = logits.argmax(-1, keepdim=True)
+                fed.append(tok.cpu())
+                logits, st = T.decode_step(params, st, tok, cfg, rt)
+                seen.append(logits.float().cpu())
+        ref[leg] = dict(logits=seen, tokens=fed)
+        del params, st, logits
     shape, tcfg = _dist_train_setup(tr_cfg)
     # the unsharded whole batch's count of one step, on ``meta``
     sc, _ = predict_train_step(tr_cfg, shape, tcfg)
@@ -2590,19 +2676,20 @@ def dist_references(d):
     return ref
 
 
-def _tp_count(params, prompts, cfg) -> dict:
-    """``core.step_count`` of one prefill and one decode step of the
-    decode legs' configuration on the plain path (chunked attention is
-    torch matmuls; the flash kernel is no aten op and would not count),
-    under the current mesh, if any: matmul FLOPs, collective bytes by
-    kind, FLOPs by aten op."""
+def _tp_count(params, batch, cfg, window=DIST_DECODE[3]) -> dict:
+    """``core.step_count`` of one prefill and one decode step of a TP
+    leg's configuration on the plain path (chunked attention and the scans
+    are torch ops; the kernels are no aten ops and would not count), under
+    the current mesh, if any: matmul FLOPs, collective bytes by kind, FLOPs
+    by aten op.  ``batch``: the prompts, or the prefill's batch dict."""
     import torch
     from repro_torch.core.step_count import StepCounter
     from repro_torch.models import transformer as T
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
     rt = T.Runtime(use_kernels=False)
-    with torch.no_grad(), StepCounter((params, prompts)) as sc:
-        logits, st = T.prefill(params, {"tokens": prompts}, cfg, rt,
-                               window=DIST_DECODE[3])
+    with torch.no_grad(), StepCounter((params, batch)) as sc:
+        logits, st = T.prefill(params, batch, cfg, rt, window=window)
         T.decode_step(params, st, logits.argmax(-1, keepdim=True), cfg, rt)
     return dict(flops=sc.flops, coll=dict(sc.coll_breakdown),
                 by_op=dict(sc.flops_by_op))
@@ -2611,17 +2698,22 @@ def _tp_count(params, prompts, cfg) -> dict:
 def _tp_weights(params, cfg, mesh) -> dict:
     """Each TP leaf's bytes as layer 0's tensor-parallel serving path takes
     them on this rank (``_tp_block_params``, ``_table_shard``), beside the
-    whole leaf's: {path: [mine, whole]}."""
+    whole leaf's: {path: [mine, whole]}.  Layer 0's mixer, and each other
+    sublayer on shards, must be on shards."""
     from repro_torch.models import transformer as T
     from repro_torch.parallel import shardctx
     nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
     with shardctx.use_mesh(mesh):
         blk = T._index(params["reps"][0], 0)
-        w, tp = T._tp_block_params(blk, cfg, "attn")
-        assert tp == {"mixer": True, "ffn": True}, tp
+        w, tp = T._tp_block_params(blk, cfg, T._pattern(cfg)[0])
+        want = {"mixer": True, "ffn": "ffn" in blk,
+                "cross": "cross_attn" in blk}
+        assert tp == want, (tp, want)
         out = {f"{sub}/{k}": [nbytes(v), nbytes(blk[sub][k])]
-               for sub in ("mixer", "ffn") for k, v in w[sub].items()}
-        for k in ("table", "out"):
+               for sub, key in (("mixer", "mixer"), ("ffn", "ffn"),
+                                ("cross_attn", "cross")) if tp[key]
+               for k, v in w[sub].items()}
+        for k in params["embed"]:
             out["embed/" + k] = [nbytes(T._table_shard(params, cfg, k)[0]),
                                  nbytes(params["embed"][k])]
     return out
@@ -2799,6 +2891,73 @@ def _dist_rank(d, res):
         out["spec_share_bytes"] = spec_share
         return out
 
+    def family_leg(leg):
+        """The SSM / RG-LRU mixers' or whisper's cross-attention's
+        tensor-parallel serving path on DIST_MESH, weights over 'model'
+        only as the decode legs' (each data rank a replica), held to the
+        unsharded run; then one prefill and decode step counted.  The
+        scans' channel counts are read off their wrappers' inputs."""
+        from repro_torch.kernels import ops
+        _, _, B, S, W, steps, _ = DIST_FAMILIES[leg]
+        cfg = _family_cfg(leg)
+        whole = T.init_model(cfg, gen(), "cuda")
+        params = shardctx.layout_tree(
+            whole, _model_only(T.model_pspecs(cfg)[1]), mesh)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch = {k: shardctx.batch_shard(v, mesh).cuda()
+                 for k, v in _family_batch(cfg, leg).items()}
+        d = res["data"]
+        rows = slice(d * B // DIST_MESH[0], (d + 1) * B // DIST_MESH[0])
+        r = ref[leg]
+        channels = []
+
+        def on_channels(fn):
+            def wrapped(*a):
+                channels.append(a[0].shape[-1])    # dt or a: (B, S, C)
+                return fn(*a)
+            return wrapped
+
+        rt = T.Runtime(use_kernels=True)
+        diffs, limits = [], []
+        t0 = time.perf_counter()
+        with torch.no_grad(), shardctx.use_mesh(mesh), \
+                patched(ops, "selective_scan",
+                        on_channels(ops.selective_scan)), \
+                patched(ops, "rglru_scan", on_channels(ops.rglru_scan)):
+            logits, st = T.prefill(params, batch, cfg, rt, window=W)
+            # each state leaf: its global and local shapes and the
+            # dimension (from the end) split over 'model'
+            state = {}
+            for i, part in enumerate(st.reps):
+                for key, nt in part.items():
+                    for f in nt._fields:
+                        t = getattr(nt, f)
+                        if t is None:
+                            continue
+                        split = [p.dim - t.dim() for p in getattr(
+                            t, "placements", ()) if hasattr(p, "dim")]
+                        state[f"{i}/{key}/{f}"] = [
+                            list(t.shape), list(shardctx.local(t).shape),
+                            split[0] if split else None]
+            for i in range(steps + 1):
+                want = r["logits"][i][rows]
+                diffs.append(float((logits.float().cpu() - want)
+                                   .abs().max()))
+                limits.append(_parity_limit(want))
+                if i < steps:
+                    logits, st = T.decode_step(
+                        params, st, r["tokens"][i][rows].cuda(), cfg, rt)
+        del st
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        with shardctx.use_mesh(mesh):
+            count = _tp_count(params, batch, cfg, W)
+        return dict(diff=diffs, limit=limits, channels=channels,
+                    state=state, count=count, run_s=run_s,
+                    weights=_tp_weights(params, cfg, mesh))
+
     def train_leg(shape):
         """The tensor-parallel trainer on a (data, model) mesh (weights and
         state laid out by their specs, FSDP over 'data'), held to the
@@ -2927,6 +3086,7 @@ def _dist_rank(d, res):
     legs = [("moe", moe_leg)]
     legs += [(name, lambda shape=shape: decode_leg(shape))
              for name, shape in DIST_TP]
+    legs += [(leg, lambda leg=leg: family_leg(leg)) for leg in DIST_FAMILIES]
     legs += [(name, lambda shape=shape: train_leg(shape))
              for name, shape in DIST_TRAIN_TP]
     legs += [("compress", compress_leg), ("restore", restore_leg)]
@@ -2950,6 +3110,7 @@ def dist_phase(smi):
     ref = dist_references(d)
     whole = ref["decode_count"]     # the TP legs' unsharded count
     whole_train = ref["train_count"]
+    whole_family = {leg: ref[leg + "_count"] for leg in DIST_FAMILIES}
     del ref
     released(0)
     ctx = mp.get_context("spawn")
@@ -2979,7 +3140,8 @@ def dist_phase(smi):
     by_path, recs = {}, {}
     tp_legs = [name for name, _ in DIST_TP]
     train_legs = [name for name, _ in DIST_TRAIN_TP]
-    for leg in ["moe"] + tp_legs + train_legs + ["compress", "restore"]:
+    for leg in (["moe"] + tp_legs + list(DIST_FAMILIES) + train_legs
+                + ["compress", "restore"]):
         per = [o[leg] for o in outs]
         by_path[f"dist:{leg}"] = {k: sum(p["launches"][k] for p in per)
                                   for k in per[0]["launches"]}
@@ -3026,6 +3188,75 @@ def dist_phase(smi):
             min_limit={q_: min(min(p[q_]["limit"]) for p in dec)
                        for q_ in ("q0", "q1")},
             run_s=[p["run_s"] for p in dec], card=smi)
+        log(f"dist:{leg}:tp", json.dumps(tp_lines[leg]))
+    from repro_torch.models.attention import attention_pspecs
+    for leg, per in ((k, recs[k]) for k in DIST_FAMILIES):
+        cfg = _family_cfg(leg)
+        B, S = DIST_FAMILIES[leg][2:4]
+        n = DIST_MESH[1]
+        counted = whole_family[leg]
+        # each rank computes a quarter of the whole batch's matmuls: its
+        # rows (1 / data) of its channels, heads and vocabulary (1 /
+        # model).  Two terms only on its rows (1 / data): whisper's LM head
+        # (a prefill's last position and a decode step), 2 not dividing
+        # its 51,865 columns, and the prefill's two k / v projections
+        # (the attention's and the ring's) where the specs replicate wk /
+        # wv (recurrentgemma's one KV head)
+        head = (2 * 2.0 * B * cfg.d_model * cfg.vocab_size
+                if leg == "whisper" else 0.0)
+        kv = 0.0
+        if "model" not in tuple(attention_pspecs(cfg)["wk"]):
+            kv = (sum(k == "attn" for k in cfg.layer_kinds) * 2 * 2 * 2.0
+                  * B * S * cfg.d_model * cfg.num_kv_heads
+                  * cfg.resolved_head_dim)
+        share = ((counted["flops"] - head - kv) / DIST_RANKS
+                 + (head + kv) / DIST_MESH[0])
+        split = set(TP_SPLIT) - set(TP_WHOLE.get(leg, ()))
+        scans = {k: v for k, v in FAMILY_LAUNCHES[leg].items()
+                 if k != "flash_attention"}
+        width = {"ssm": lambda c: c.ssm.expand * c.d_model,
+                 "rglru": lambda c: c.rglru.lru_width}.get(leg)
+        for p in per:
+            assert all(a <= b for a, b in zip(p["diff"], p["limit"])), \
+                (leg, p["diff"], p["limit"])
+            assert abs(p["count"]["flops"] / share - 1) <= TP_FLOPS_REL, \
+                (leg, p["count"]["flops"], share)
+            for k, (mine, full) in p["weights"].items():
+                assert mine * (n if k in split else 1) == full, (leg, k)
+            # the scan kernels ran on the rank's channels, once a
+            # recurrent layer a prefill
+            assert len(p["channels"]) == sum(scans.values()), p["channels"]
+            assert all(c * n == width(cfg) for c in p["channels"]), (
+                leg, p["channels"])
+            # every state leaf the spec's shard: recurrent states by
+            # channel, rings and cross caches by position
+            for path, (glob, loc, dim) in p["state"].items():
+                assert dim is not None and loc[dim] * n == glob[dim], (
+                    leg, path, glob, loc, dim)
+        tp_lines[leg] = dict(
+            arch=cfg.name, layers=cfg.num_layers, mesh=list(DIST_MESH),
+            batch=B, prompt=DIST_FAMILIES[leg][3],
+            window=DIST_FAMILIES[leg][4], steps=DIST_FAMILIES[leg][5],
+            frames=DIST_FAMILIES[leg][6],
+            rank_flops=[p["count"]["flops"] for p in per],
+            whole_batch_flops=counted["flops"], head_flops=head,
+            replicated_kv_flops=kv, share_flops=share,
+            ratio=[p["count"]["flops"] / counted["flops"] for p in per],
+            rank_flops_by_op=per[0]["count"]["by_op"],
+            whole_flops_by_op=counted["by_op"],
+            coll_bytes=[p["count"]["coll"] for p in per],
+            scan_channels=[p["channels"] for p in per],
+            state_shapes=per[0]["state"],
+            gathered_bytes=[sum(m for m, _ in p["weights"].values())
+                            for p in per],
+            gathered_whole_bytes=sum(f for _, f in
+                                     per[0]["weights"].values()),
+            gathered_by_leaf=per[0]["weights"],
+            max_diff=max(max(p["diff"]) for p in per),
+            min_limit=min(min(p["limit"]) for p in per),
+            run_s=[p["run_s"] for p in per],
+            wall_s=[p["wall_s"] for p in per],
+            peak_gb=[p["peak_gb"] for p in per], card=smi)
         log(f"dist:{leg}:tp", json.dumps(tp_lines[leg]))
     for (leg, shape), per in zip(DIST_TRAIN_TP,
                                  (recs[k] for k in train_legs)):
@@ -3081,6 +3312,11 @@ def dist_phase(smi):
     assert all(p["launches"]["quantize_int8"] == L * (1 + DIST_DECODE[4])
                for p in dec), [p["launches"] for p in dec]
     assert all(p["launches"]["flash_attention"] == 2 * L for p in dec)
+    for leg, want in FAMILY_LAUNCHES.items():
+        for p in recs[leg]:
+            assert all(p["launches"][k] == v for k, v in want.items()), (
+                leg, p["launches"])
+            assert p["launches"]["rmsnorm"] > 0, (leg, p["launches"])
     assert all(p["launches"]["quantize_int8"] == p["quantize_expected"]
                for p in tr), [(p["launches"], p["quantize_expected"])
                               for p in tr]

@@ -62,7 +62,7 @@ from repro_torch.core.fusion import MeshPlan
 from repro_torch.core.step_count import profile_from_step
 from repro_torch.data.pipeline import make_batch_specs
 from repro_torch.launch import mesh as meshlib
-from repro_torch.models import attention
+from repro_torch.models import attention, rglru, ssm
 from repro_torch.models import transformer as T
 from repro_torch.parallel import shardctx
 from repro_torch.train.trainer import Trainer
@@ -130,31 +130,36 @@ def _rows(batch: Dict[str, torch.Tensor], cfg: ModelConfig, mesh):
 
 
 def _rank_decode_state(cfg: ModelConfig, B: int, S: int, enc_len: int,
-                       mesh) -> T.DecodeState:
+                       params, mesh) -> T.DecodeState:
     """The decode state rank 0 holds after the port's prefill under
-    ``mesh``: its batch rows, each attention ring sequence-sharded over
-    'model' where the model axis divides it (``attention._seq_shard_cache``,
-    layer by layer, stacked as ``forward_hidden`` stacks them), the
-    recurrent states and whisper's cross caches whole."""
+    ``mesh``: its batch rows; each attention ring and whisper's cross
+    cache sequence-sharded over 'model' where the model axis divides it
+    (``attention._seq_shard_cache`` on the stacked layers); each SSM and
+    RG-LRU state the rank's channels where its mixer computes on 'model'
+    shards (``T._tp_block_params`` on the block's weights, ``params``
+    laid out under ``mesh``)."""
     b = shardctx.batch_shard(torch.empty((B,), device=META), mesh).shape[0]
     st = T.init_decode_state(cfg, b, S, enc_len, device=META)
+    pattern = T._pattern(cfg)
 
-    def ring(part, stacked):
-        if not isinstance(part.get("self"), attention.KVCache):
+    def lay_out(part, kind, blk):
+        if kind == "attn":
+            return {k: attention._seq_shard_cache(c) for k, c in part.items()}
+        if not (T._tensor_parallel()
+                and T._tp_block_params(blk, cfg, kind)[1]["mixer"]):
             return part
-        cache = part["self"]
-        if stacked:
-            layers = [attention._seq_shard_cache(attention.KVCache(
-                *(None if t is None else t[r] for t in cache)))
-                for r in range(cache.k.shape[0])]
-            cache = T._stack(layers)
-        else:
-            cache = attention._seq_shard_cache(cache)
-        return dict(part, self=cache)
+        st_ = part["self"]
+        dims = (ssm if kind == "ssm" else rglru).STATE_MODEL_DIM
+        return dict(part, self=type(st_)(*(shardctx.model_sharded(
+            shardctx.model_chunk(t, d).contiguous(), d)
+            for t, d in zip(st_, dims))))
 
     with shardctx.use_mesh(mesh):
-        return st._replace(reps=tuple(ring(p, True) for p in st.reps),
-                           rest=tuple(ring(p, False) for p in st.rest))
+        reps = tuple(lay_out(p, kind, T._index(params["reps"][i], 0))
+                     for i, (p, kind) in enumerate(zip(st.reps, pattern)))
+        rest = tuple(lay_out(p, pattern[j % len(pattern)], params["rest"][j])
+                     for j, p in enumerate(st.rest))
+    return st._replace(reps=reps, rest=rest)
 
 
 def cell_trainer(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -195,7 +200,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh):
 
     # decode: one new token against a seq_len-deep cache
     enc_len = ENC_FRAMES if cfg.encoder_layers else 0
-    state = _rank_decode_state(cfg, B, shape.seq_len, enc_len, mesh)
+    state = _rank_decode_state(cfg, B, shape.seq_len, enc_len, params, mesh)
     tokens = shardctx.batch_shard(
         torch.empty((B, 1), dtype=torch.long, device=META), mesh)
 

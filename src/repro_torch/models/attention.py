@@ -37,7 +37,10 @@ rank's q heads then read the run of them their GQA groups use; decode
 projects its column chunk of them instead); ``wo`` is row-parallel and
 the partial sums add over 'model'.  The prefill cache and the decode core
 take every KV head and q whole, as the reference's ring and ``shard_map``
-do, so the rank's heads are all-gathered over 'model' first.
+do, so the rank's heads are all-gathered over 'model' first.  Whisper's
+cross-attention takes the same path with k / v projected from the encoder
+output; its decode cache (``build_cross_cache``) is laid out over 'model'
+by encoder position like a ring, and its decode step projects q alone.
 
 KV caches are ring buffers: slot ``i`` holds absolute position
 ``p_i = pos - ((pos - i) mod W)`` (valid iff ``p_i >= 0``), which
@@ -405,7 +408,16 @@ def decode_attention(params, cache: KVCache, x_new: torch.Tensor,
         positions = rp[:, None, None].expand(B, 3, 1)
     else:
         positions = rp[:, None]
-    if tp:
+    if cross:
+        # the cache holds the encoder's K / V: only q is projected (the
+        # reference projects the new token's k / v too and drops them, and
+        # XLA removes that work from its program)
+        q = x_new @ params["wq"]
+        if tp:
+            (q,) = _gather_columns(q)
+        q = q.reshape(B, 1, -1, cfg.resolved_head_dim)
+        new_k = new_v = None
+    elif tp:
         # column-parallel q / k / v: the rank's heads, or its column chunk
         # of a replicated ``wk`` / ``wv`` (GSPMD divides that projection
         # too); all-gathered, then normed and rotated on whole heads
@@ -444,11 +456,21 @@ def decode_attention(params, cache: KVCache, x_new: torch.Tensor,
 
 
 def build_cross_cache(params, encoder_out: torch.Tensor,
-                      cfg: ModelConfig) -> KVCache:
-    """Static decode-time KV cache over the encoder output (no RoPE)."""
-    _, k, v = _project_qkv(params, encoder_out, cfg, None,
-                           apply_positions=False)
-    return KVCache(k=k, v=v)
+                      cfg: ModelConfig, tp: bool = False) -> KVCache:
+    """Static decode-time KV cache over the encoder output (no RoPE).
+
+    With ``tp`` the weights are this rank's 'model' shards; split k / v are
+    all-gathered over 'model' along the heads, as ``prefill_cache``'s are.
+    Under a mesh whose 'model' axis divides the encoder positions the
+    cache is the rank's run of them (``_seq_shard_cache``), which the
+    decode step scores and combines across the model ranks.
+    """
+    k, v = encoder_out @ params["wk"], encoder_out @ params["wv"]
+    if tp and k.shape[-1] != cfg.num_kv_heads * cfg.resolved_head_dim:
+        k, v = _gather_columns(k, v)
+    hd = cfg.resolved_head_dim
+    return _seq_shard_cache(KVCache(k=k.reshape(*k.shape[:2], -1, hd),
+                                    v=v.reshape(*v.shape[:2], -1, hd)))
 
 
 def prefill_cache(params, x, positions, cfg: ModelConfig,
@@ -481,16 +503,14 @@ def prefill_cache(params, x, positions, cfg: ModelConfig,
 
 
 def _seq_shard_cache(cache: KVCache) -> KVCache:
-    """Under a mesh whose 'model' axis divides the ring, this rank's slots
-    of it as a ``DTensor`` over the model axis (the reference's
-    ``hint(k, "batch", "model", None, None)``); else the ring whole."""
-    mesh = shardctx.current_mesh()
+    """Under a mesh whose 'model' axis divides the ring (or the cross
+    cache's encoder positions), this rank's slots of it as a ``DTensor``
+    over the model axis (the reference's ``hint(k, "batch", "model", None,
+    None)``, which its decode's ``shard_map`` takes); else the ring whole.
+    The slots are dimension -3 of each field, so a stack of layers' caches
+    (R, B, W, KV, hd) is laid out as the stack of each layer's."""
     n = shardctx.axis_size("model")
-    W = cache.k.shape[1]
-    if mesh is None or n == 1 or W % n:
+    if n == 1 or cache.k.shape[-3] % n:
         return cache
-    from torch.distributed.tensor import Shard
-    sub = mesh["model"]
-    return KVCache(*(None if t is None else shardctx.layout_local(
-        t.chunk(n, dim=1)[shardctx.axis_index("model")].contiguous(), sub,
-        [Shard(1)], t.shape) for t in cache))
+    return KVCache(*(None if t is None else shardctx.model_sharded(
+        shardctx.model_chunk(t, -3).contiguous(), -3) for t in cache))

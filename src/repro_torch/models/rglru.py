@@ -11,6 +11,16 @@ The block is: in-proj (x branch + gate branch) -> causal conv on x branch
 -> out-proj.  The recurrence is fp32; it goes through the CUDA kernel
 (``kernels.ops.rglru_scan``) under ``use_kernel`` and through
 ``scan_utils.linear_scan`` otherwise.
+
+Tensor parallelism (``tp``) splits the width W over 'model', as the
+reference's specs do (``rglru_pspecs``): ``in_x``, ``in_gate``, ``wa`` and
+``wx`` are column-parallel, ``out`` row-parallel (its partial sums add over
+'model'), and ``ba``, ``lam`` and ``conv_w`` per channel.  The gates' input
+is the conv output, itself on the rank's W / n channels, so it is
+all-gathered over 'model' for ``wa`` / ``wx`` (as GSPMD inserts it); the
+scan and the gelu gate run on the rank's channels.  The decode state then
+holds the rank's channels, a ``DTensor`` over the model axis
+(``rglru_state_pspec``).
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import layers, scan_utils
+from repro_torch.parallel import collectives, shardctx
 from repro_torch.parallel.shardctx import P
 
 _C = 8.0  # Griffin's fixed temperature on the recurrence gate
@@ -31,6 +42,11 @@ _C = 8.0  # Griffin's fixed temperature on the recurrence gate
 class RGLRUState(NamedTuple):
     conv: torch.Tensor   # (B, K-1, W)
     h: torch.Tensor      # (B, W) fp32
+
+
+# each state field's channel dimension, the one ``rglru_state_pspec``
+# splits over 'model'
+STATE_MODEL_DIM = RGLRUState(conv=-1, h=-1)
 
 
 def init_rglru(cfg: ModelConfig, device, generator: torch.Generator,
@@ -62,10 +78,13 @@ def init_rglru(cfg: ModelConfig, device, generator: torch.Generator,
     }
 
 
-def _gates(params, xc):
-    """xc: (..., W) conv output -> (a, gated_input) in fp32."""
-    r = torch.sigmoid((xc @ params["wa"]).float() + params["ba"])
-    i = torch.sigmoid((xc @ params["wx"]).float())
+def _gates(params, xc, tp: bool = False):
+    """xc: (..., W) conv output -> (a, gated_input) in fp32.  Under ``tp``
+    xc holds the rank's channels; the gate columns of ``wa`` / ``wx`` read
+    every channel, all-gathered over 'model'."""
+    xg = collectives.all_gather(xc, xc.dim() - 1, "model") if tp else xc
+    r = torch.sigmoid((xg @ params["wa"]).float() + params["ba"])
+    i = torch.sigmoid((xg @ params["wx"]).float())
     log_a = -_C * F.softplus(params["lam"]) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
@@ -74,12 +93,14 @@ def _gates(params, xc):
 
 
 def rglru_forward(params, x: torch.Tensor, cfg: ModelConfig,
-                  use_kernel: bool = False, return_state: bool = False):
-    """x: (B,S,D) -> (B,S,D) (optionally also the final RGLRUState)."""
+                  use_kernel: bool = False, return_state: bool = False,
+                  tp: bool = False):
+    """x: (B,S,D) -> (B,S,D) (optionally also the final RGLRUState).  With
+    ``tp`` the weights are this rank's shards (module docstring)."""
     xb = x @ params["in_x"]
     gate = x @ params["in_gate"]
     xc = scan_utils.causal_conv1d(xb, params["conv_w"])
-    a, b = _gates(params, xc)
+    a, b = _gates(params, xc, tp)
     if use_kernel:
         h = kernel_ops.rglru_scan(a, b)
         h_last = h[:, -1]
@@ -88,12 +109,18 @@ def rglru_forward(params, x: torch.Tensor, cfg: ModelConfig,
         h, h_last = scan_utils.linear_scan(a, b, h0)
     y = h.to(x.dtype) * F.gelu(gate, approximate="tanh")
     out = y @ params["out"]
+    if tp:
+        out = collectives.psum(out, "model")
     if not return_state:
         return out
     conv_state = scan_utils.conv_tail(xb, (cfg.rglru.conv_width
                                            if cfg.rglru else 4))
     # a copy: the state must not keep the whole (B, S, W) scan output alive
-    return out, RGLRUState(conv=conv_state, h=h_last.clone())
+    state = RGLRUState(conv=conv_state, h=h_last.clone())
+    if tp:
+        state = RGLRUState(*(shardctx.model_sharded(t, d)
+                             for t, d in zip(state, STATE_MODEL_DIM)))
+    return out, state
 
 
 def rglru_pspecs() -> dict:
@@ -121,13 +148,25 @@ def init_rglru_state(cfg: ModelConfig, batch: int, device,
 
 
 def rglru_step(params, state: RGLRUState, x_new: torch.Tensor,
-               cfg: ModelConfig) -> Tuple[torch.Tensor, RGLRUState]:
-    """Decode step.  x_new: (B,1,D) -> (B,1,D)."""
+               cfg: ModelConfig, tp: bool = False
+               ) -> Tuple[torch.Tensor, RGLRUState]:
+    """Decode step.  x_new: (B,1,D) -> (B,1,D).  With ``tp`` the weights
+    are this rank's shards and ``state`` holds its channels (a ``DTensor``
+    over 'model', as ``rglru_forward`` leaves it); the new state comes back
+    laid out as ``state``."""
+    conv0, h0 = (shardctx.local(t) for t in state)
     xb = x_new[:, 0] @ params["in_x"]
+    if conv0.shape[-1] != xb.shape[-1]:
+        raise ValueError(f"rglru_step: a state of {conv0.shape[-1]} "
+                         f"channels for weights of {xb.shape[-1]}")
     gate = x_new[:, 0] @ params["in_gate"]
     xc, conv_state = scan_utils.causal_conv1d_step(
-        xb, state.conv, params["conv_w"])
-    a, b = _gates(params, xc)
-    h = scan_utils.linear_scan_step(a, b, state.h)
+        xb, conv0, params["conv_w"])
+    a, b = _gates(params, xc, tp)
+    h = scan_utils.linear_scan_step(a, b, h0)
     y = h.to(x_new.dtype) * F.gelu(gate, approximate="tanh")
-    return (y @ params["out"])[:, None], RGLRUState(conv=conv_state, h=h)
+    out = (y @ params["out"])[:, None]
+    if tp:
+        out = collectives.psum(out, "model")
+    return out, RGLRUState(conv=shardctx.like(state.conv, conv_state),
+                           h=shardctx.like(state.h, h))

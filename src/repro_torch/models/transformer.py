@@ -48,17 +48,21 @@ over ``model`` between sublayers (Megatron-SP).
 
 Every entry point (``loss_fn``, ``logits_fn``, ``prefill``, ``decode_step``)
 is tensor-parallel where the 'model' axis has ranks, as GSPMD partitions
-the reference's layers by their specs (Megatron): the self-attention, the
-dense MLP, the MoE's shared experts and dense residual, the embedding
-lookup and the LM head take each weight as its resolved spec has it, this
-rank's 'model' shard or whole (:func:`_tp_block_params`,
-:func:`_table_shard`), and their partial sums add over 'model'.  The LM
-loss is vocab-parallel: each rank scores its V / n logits and the
-log-sum-exp and the picked logit add over 'model'
-(:func:`_vocab_parallel_nll`), so no rank holds (B, c, V) fp32 logits.  The
-SSM and RG-LRU mixers, whisper's cross-attention and a self-attention
-whose heads the model axis does not divide compute whole on the rank's
-rows; the routed experts keep ``moe_sharded``'s expert-parallel layout.
+the reference's layers by their specs (Megatron): the self- and
+cross-attention, the SSM and RG-LRU mixers, the dense MLP, the MoE's
+shared experts and dense residual, the embedding lookup and the LM head
+take each weight as its resolved spec has it, this rank's 'model' shard or
+whole (:func:`_tp_block_params`, :func:`_table_shard`), and their partial
+sums add over 'model'.  The decode state follows the reference's specs:
+attention rings and whisper's cross caches hold the rank's run of
+positions, and the SSM and RG-LRU states its channels (``DTensor``s over
+the model axis), where the model axis divides them.  The LM loss is
+vocab-parallel: each rank scores its V / n logits and the log-sum-exp and
+the picked logit add over 'model' (:func:`_vocab_parallel_nll`), so no
+rank holds (B, c, V) fp32 logits.  An attention whose heads the model axis
+does not divide, and a mixer whose channels it does not divide, compute
+whole on the rank's rows; the routed experts keep ``moe_sharded``'s
+expert-parallel layout.
 """
 from __future__ import annotations
 
@@ -165,7 +169,9 @@ def _stack(trees: List[Any]):
 
 def _write_(dst, src) -> None:
     """In place: copy tree ``src`` into the same-shaped views ``dst``
-    (a tensor that already is its destination is left as it is)."""
+    (a tensor that already is its destination is left as it is).  A
+    ``DTensor`` view takes ``src``'s local tensor into its own: each
+    rank's shard, laid out alike, no collective."""
     if isinstance(dst, dict):
         for k in dst:
             _write_(dst[k], src[k])
@@ -173,7 +179,7 @@ def _write_(dst, src) -> None:
         for d, s_ in zip(dst, src):
             _write_(d, s_)
     elif dst is not None and dst is not src:
-        dst.copy_(src)
+        shardctx.local(dst).copy_(shardctx.local(src))
 
 
 def _depth(blocks) -> int:
@@ -308,30 +314,40 @@ def _tensor_parallel() -> bool:
     return shardctx.axis_size("model") > 1
 
 
+_NO_TP = {"mixer": False, "ffn": False, "cross": False}
+
+
 def _tp_block_params(params: Dict[str, Any], cfg: ModelConfig, kind: str,
                      production: bool = True):
     """(weights, tp): a block's weights for the tensor-parallel path, and
-    which of its sublayers (``"mixer"``, ``"ffn"``) compute on 'model'
-    shards.
+    which of its sublayers (``"mixer"``, ``"ffn"``, ``"cross"`` for
+    whisper's ``cross_attn``) compute on 'model' shards.
 
-    The self-attention (an ``"attn"`` block's mixer), the dense MLP and an
-    MoE FFN's always-on branches (deepseek's shared experts ``"shared"``,
-    arctic's dense residual ``"dense"``) take each leaf as its resolved
-    spec has it (``shardctx.model_dim`` on the specs of ``block_pspecs``):
-    a leaf the spec splits over 'model' as this rank's 'model' shard,
-    gathered over 'data' only (``shardctx.model_shard``); a leaf the spec
-    replicates whole.  The attention computes whole, its weights gathered,
-    where the model axis does not divide its heads (qwen3-14b's 40 on 16
-    model ranks), as does an MLP whose ``d_ff`` its spec leaves whole (for
-    an MoE FFN: unless every always-on branch splits, all compute whole).
-    Everything else (norms, SSM and RG-LRU mixers, whisper's
-    cross-attention, the router and the routed experts' bank, which
-    ``moe_sharded`` lays out by expert) is :func:`_pin_block_params`'s.
+    Each sublayer on shards takes each leaf as its resolved spec has it
+    (``shardctx.model_dim`` on the specs of ``block_pspecs``): a leaf the
+    spec splits over 'model' as this rank's 'model' shard, gathered over
+    'data' only (``shardctx.model_shard``); a leaf the spec replicates
+    whole.  The sublayers:
+
+    * self- and cross-attention, where the model axis divides the heads
+      (and the KV heads, where the spec splits ``wk`` / ``wv``); else
+      whole, as qwen3-14b's 40 heads on 16 model ranks are;
+    * the SSM and RG-LRU mixers, where every leaf their specs name 'model'
+      on is split (the model axis divides ``d_inner`` or W); else whole.
+      The SSM's ``in_proj`` is gathered whole and the rank's x and z
+      columns taken from it (``ssm.in_proj_shard``);
+    * the dense MLP, where its spec splits ``d_ff``, and an MoE FFN's
+      always-on branches (deepseek's shared experts ``"shared"``, arctic's
+      dense residual ``"dense"``) where every one of them splits.
+
+    Everything else (norms, the router and the routed experts' bank,
+    which ``moe_sharded`` lays out by expert) is
+    :func:`_pin_block_params`'s.
     """
     specs = block_pspecs(cfg, kind, cross="cross_attn" in params)
     n = shardctx.axis_size("model")
     out: Dict[str, Any] = {}
-    tp = {"mixer": False, "ffn": False}
+    tp = dict(_NO_TP)
 
     def dims_of(tree, spec):
         return {k: shardctx.model_dim(v, spec[k]) for k, v in tree.items()}
@@ -348,8 +364,8 @@ def _tp_block_params(params: Dict[str, Any], cfg: ModelConfig, kind: str,
                              f"over 'model' inconsistently")
         return dims
 
-    if kind == "attn":
-        dims = dims_of(params["mixer"], specs["mixer"])
+    def attention(sub, key):
+        dims = dims_of(params[sub], specs[sub])
         if (dims["wq"] is None) != (dims["wo"] is None) or \
                 (dims["wk"] is None) != (dims["wv"] is None):
             raise ValueError(f"tensor-parallel attention: specs split "
@@ -357,7 +373,23 @@ def _tp_block_params(params: Dict[str, Any], cfg: ModelConfig, kind: str,
         heads_divide = cfg.num_heads % n == 0 and (
             dims["wk"] is None or cfg.num_kv_heads % n == 0)
         if dims["wq"] is not None and heads_divide:
-            out["mixer"], tp["mixer"] = take(params["mixer"], dims), True
+            out[sub], tp[key] = take(params[sub], dims), True
+
+    if kind == "attn":
+        attention("mixer", "mixer")
+    else:
+        mixer, spec = params["mixer"], specs["mixer"]
+        dims = dims_of(mixer, spec)
+        if all(dims[k] is not None for k, sp in spec.items()
+               if "model" in tuple(sp)):
+            w = take({k: v for k, v in mixer.items() if k != "in_proj"},
+                     dims)
+            if kind == "ssm":
+                w["in_proj"] = ssm.in_proj_shard(
+                    shardctx.gather(mixer["in_proj"]))
+            out["mixer"], tp["mixer"] = w, True
+    if "cross_attn" in params:
+        attention("cross_attn", "cross")
     if "ffn" in params and cfg.moe is None:
         dims = mlp_dims(params["ffn"], specs["ffn"], "MLP")
         if dims["wo"] is not None:
@@ -382,8 +414,7 @@ def _block_weights(params, cfg: ModelConfig, kind: str, rt: Runtime):
     on shards."""
     if _tensor_parallel():
         return _tp_block_params(params, cfg, kind, rt.production)
-    return (_pin_block_params(params, rt.production),
-            {"mixer": False, "ffn": False})
+    return _pin_block_params(params, rt.production), dict(_NO_TP)
 
 
 def _seq_sharded(rt: Runtime) -> bool:
@@ -453,9 +484,9 @@ def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
     ``aux`` is the MoE FFN's routing telemetry, ``None`` for a block
     without one (the reference returns zeros there; ``forward_hidden``
     starts its sum from zeros, so the total is the same).  Under a mesh with
-    model ranks the self-attention, the dense MLP and the MoE's always-on
-    branches compute on this rank's 'model' shards
-    (:func:`_tp_block_params`).
+    model ranks the sublayers compute on this rank's 'model' shards
+    (:func:`_tp_block_params`); with ``build_cache`` a recurrent mixer's
+    state then holds the rank's channels.
     """
     params, tp = _block_weights(params, cfg, kind, rt)
     seq = _seq_sharded(rt)
@@ -491,7 +522,7 @@ def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
     else:
         fwd = ssm.ssm_forward if kind == "ssm" else rglru.rglru_forward
         mix = fwd(params["mixer"], h, cfg, use_kernel=k,
-                  return_state=build_cache)
+                  return_state=build_cache, tp=tp["mixer"])
         if build_cache:
             mix, st = mix
             cache = {"self": st}
@@ -503,10 +534,10 @@ def block_forward(params, x, positions, encoder_out, cfg: ModelConfig,
         x = x + scatter_seq(attention.full_attention(
             params["cross_attn"], h, None, cfg, causal=False,
             encoder_out=encoder_out, q_block=rt.q_block,
-            kv_block=rt.kv_block))
+            kv_block=rt.kv_block, tp=tp["cross"]))
         if build_cache:
             cache["cross"] = attention.build_cross_cache(
-                params["cross_attn"], encoder_out, cfg)
+                params["cross_attn"], encoder_out, cfg, tp=tp["cross"])
     aux = None
     if "ffn" in params:
         h = gather_seq(layers.rmsnorm(params["norm2"], x, cfg.norm_eps,
@@ -533,12 +564,10 @@ def block_decode(params, state, x_new, pos, cfg: ModelConfig, kind: str,
         mix, new_state["self"] = attention.decode_attention(
             params["mixer"], state["self"], h, pos, cfg, rope_pos=rope_pos,
             use_kernels=k, tp=tp["mixer"])
-    elif kind == "ssm":
-        mix, new_state["self"] = ssm.ssm_step(params["mixer"], state["self"],
-                                              h, cfg)
     else:
-        mix, new_state["self"] = rglru.rglru_step(params["mixer"],
-                                                  state["self"], h, cfg)
+        step = ssm.ssm_step if kind == "ssm" else rglru.rglru_step
+        mix, new_state["self"] = step(params["mixer"], state["self"], h, cfg,
+                                      tp=tp["mixer"])
     x = x_new + mix
     if "cross" in state:
         h = layers.rmsnorm(params["cross_norm"], x, cfg.norm_eps,
@@ -548,7 +577,7 @@ def block_decode(params, state, x_new, pos, cfg: ModelConfig, kind: str,
                              device=x.device)
         out, _ = attention.decode_attention(
             params["cross_attn"], state["cross"], h, enc_pos, cfg,
-            update=False, cross=True, use_kernels=k)
+            update=False, cross=True, use_kernels=k, tp=tp["cross"])
         x = x + out
     if "ffn" in params:
         h = layers.rmsnorm(params["norm2"], x, cfg.norm_eps, use_kernel=k)

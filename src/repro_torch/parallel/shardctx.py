@@ -384,6 +384,13 @@ def full(t) -> torch.Tensor:
         return out
 
 
-def layout_local(loc: torch.Tensor, mesh, placements, shape) -> torch.Tensor:
-    """A ``DTensor`` of global ``shape`` whose local tensor is ``loc``."""
-    return _wrap(loc, mesh, list(placements), shape)
+def model_sharded(loc: torch.Tensor, dim: int) -> torch.Tensor:
+    """``loc``, this rank's chunk along ``dim`` over 'model', as a
+    ``DTensor`` over the current mesh's model axis: its global shape is
+    ``loc``'s with ``dim`` ``n_model`` times as long (the other dimensions,
+    the rank's batch rows among them, as ``loc`` has them)."""
+    from torch.distributed.tensor import Shard
+    dim %= loc.dim()
+    shape = list(loc.shape)
+    shape[dim] *= axis_size("model")
+    return _wrap(loc, current_mesh()["model"], [Shard(dim)], shape)

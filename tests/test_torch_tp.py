@@ -22,9 +22,10 @@ process meanwhile, within 2e-3 (as ``tests/test_multidevice.py``):
   caches, float32: logits within 2e-3, tokens equal;
 * ``seq_shard`` on (1, 4): the same prefill;
 * the other families on (2, 2): whisper-base (encoder and decoder
-  self-attention on shards, cross-attention whole), recurrentgemma-9b (MQA
-  beside whole RG-LRU blocks), falcon-mamba-7b (the tied LM head,
-  row-parallel), deepseek-moe-16b (``moe_sharded`` beside the attention);
+  self-attention and the cross-attention on shards), recurrentgemma-9b (MQA
+  beside RG-LRU mixers on shards), falcon-mamba-7b (SSM mixers on shards,
+  the tied LM head row-parallel), deepseek-moe-16b (``moe_sharded`` beside
+  the attention);
 * heads the model axis does not divide compute whole, and q heads that read
   their KV heads in unequal groups raise.
 
@@ -246,8 +247,8 @@ torch.distributed.destroy_process_group()
 """
 
 
-# rank 0's count of a reduced qwen3-14b prefill and decode step on a fake
-# (2, 2) group, on the meta device
+# rank 0's count of a reduced config's cells (B 4, S 64) on a fake (2, 2)
+# group, on the meta device; the cell argument is [arch, [kind, ...]]
 FAKE_CHILD = r"""
 import json, sys
 import torch
@@ -258,9 +259,10 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.fusion import MeshPlan
 from repro_torch.core.step_count import StepCounter
 from repro_torch.launch import dryrun
-cfg = get_config("qwen3-14b", reduced=True).replace(dtype="float32")
+arch, kinds = json.loads(sys.argv[1])
+cfg = get_config(arch, reduced=True).replace(dtype="float32")
 out = {}
-for kind in ("prefill", "decode"):
+for kind in kinds:
     mesh = dryrun._join_fake_group(MeshPlan("base", data=2, model=2))
     try:
         fn, args = dryrun.build_cell(cfg, ShapeConfig(kind, 64, 4, kind),
@@ -277,7 +279,7 @@ print(json.dumps(out))
 # the reference's same cells, compiled for a (2, 2) mesh of 4 host devices
 # (Auto axes: jax 0.9.0's default Explicit axes trip its shardctx.hint)
 REF_CHILD = r"""
-import json, os
+import json, os, sys
 assert os.environ["XLA_FLAGS"] == "--xla_force_host_platform_device_count=4"
 import jax
 assert len(jax.devices()) == 4
@@ -288,9 +290,10 @@ from repro.core import hlo_analysis as JH
 from repro.parallel import shardctx
 mesh = jax.make_mesh((2, 2), ("data", "model"),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
-cfg = get_config("qwen3-14b", reduced=True).replace(dtype="float32")
+arch, kinds = json.loads(sys.argv[1])
+cfg = get_config(arch, reduced=True).replace(dtype="float32")
 out = {}
-for kind in ("prefill", "decode"):
+for kind in kinds:
     with shardctx.use_mesh(mesh):
         fn, args = JD.build_cell(cfg, ShapeConfig(kind, 64, 4, kind), mesh,
                                  "base")
@@ -298,6 +301,22 @@ for kind in ("prefill", "decode"):
     out[kind] = {"flops": cost.flops, "unresolved": cost.unresolved_loops}
 print(json.dumps(out))
 """
+
+
+def start_counts(env, arch, kinds):
+    """The two counting children for reduced ``arch``'s ``kinds`` cells:
+    rank 0's count on a fake (2, 2) group and the reference's program
+    compiled for 4 host devices."""
+    cell = json.dumps([arch, list(kinds)])
+    fake = subprocess.Popen([sys.executable, "-c", FAKE_CHILD, cell],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    ref_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4",
+                   JAX_PLATFORMS="cpu")
+    compiled = subprocess.Popen([sys.executable, "-c", REF_CHILD, cell],
+                                env=ref_env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    return fake, compiled
 
 
 def _free_port() -> int:
@@ -352,14 +371,7 @@ def run(tmp_path_factory):
         procs.append(subprocess.Popen(
             [sys.executable, "-c", CHILD], env=e, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
-    fake = subprocess.Popen([sys.executable, "-c", FAKE_CHILD], env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    ref_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-                   JAX_PLATFORMS="cpu")
-    compiled = subprocess.Popen([sys.executable, "-c", REF_CHILD],
-                                env=ref_env, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+    fake, compiled = start_counts(env, "qwen3-14b", ("prefill", "decode"))
 
     # the oracles, while the children run
     oracle = {}
@@ -418,12 +430,13 @@ def run(tmp_path_factory):
 
 def _reprojection_flops(cfg, Bp=4, Sp=64, data=2, model=2) -> float:
     """Rank 0's FLOPs of the second q/k/v projection ``prefill_cache`` makes
-    in each layer of the (2, 2) prefill cell, divided as the first: the
-    rank's batch rows and q heads, and every KV head (reduced qwen3-14b's 2
-    KV heads: ``wk`` / ``wv`` replicated)."""
+    in each attention layer of the (2, 2) prefill cell, divided as the
+    first: the rank's batch rows and q heads, and every KV head (reduced
+    qwen3-14b's 2 KV heads: ``wk`` / ``wv`` replicated)."""
     hd = cfg.resolved_head_dim
     width = cfg.num_heads * hd // model + 2 * cfg.num_kv_heads * hd
-    return cfg.num_layers * 2.0 * (Bp // data) * Sp * cfg.d_model * width
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds)
+    return n_attn * 2.0 * (Bp // data) * Sp * cfg.d_model * width
 
 
 def _rows(o, mesh):
@@ -450,7 +463,8 @@ def test_tp_leaf_matches_reference(run, mesh, cfg, leaf):
     want = oracle[cfg][leaf]
     for o in outs:
         r = o[mesh][cfg]
-        assert r["tp"] == {"mixer": True, "ffn": True}, r["tp"]
+        assert r["tp"] == {"mixer": True, "ffn": True, "cross": False}, \
+            r["tp"]
         rows = _rows(o, mesh)
         if leaf.startswith("cache"):
             lo, n = r[leaf + "_slots"]
@@ -527,7 +541,8 @@ def test_uneven_heads_compute_whole_or_raise(run):
         u = o["1x4"]["uneven"]
         # 6 heads on 4 model ranks: the attention whole, the MLP on shards
         assert u["whole"]["error"] is None
-        assert u["whole"]["tp"] == {"mixer": False, "ffn": True}
+        assert u["whole"]["tp"] == {"mixer": False, "ffn": True,
+                                    "cross": False}
         assert u["whole"]["diff"] < TOL
         # 12 heads, 6 KV heads (replicated): rank 0's q heads 0-2 read KV
         # heads 0, 0, 1

@@ -16,12 +16,12 @@ tokens, computed in this process meanwhile:
   heads: ``wk`` / ``wv`` replicated) and with 8 / 4 heads (split), on both
   meshes; on (2, 2) also deepseek-moe-16b (``moe_sharded``, capacity factor
   8, its 2 shared experts on shards), falcon-mamba-7b (the tied table: a
-  row-parallel head, then the vocab-parallel loss; SSM mixers whole),
-  whisper-base (encoder and decoder self-attention on shards,
-  cross-attention whole; its vocabulary made odd, 515, as the full
+  row-parallel head, then the vocab-parallel loss; SSM mixers on shards),
+  whisper-base (encoder and decoder self-attention and the
+  cross-attention on shards; its vocabulary made odd, 515, as the full
   51,865 is, so the model axis does not divide V and the loss runs on
   whole logits) and recurrentgemma-9b (MQA attention, its one KV head
-  replicated, beside whole RG-LRU mixers).
+  replicated, beside RG-LRU mixers on shards).
   Each rank's gradient shard is held to the same slice of ``jax.grad`` of
   the reference's ``loss_fn`` (for the MoE: of its mean over the two data
   shards' rows, whose routing aux terms are per shard as in the
@@ -62,8 +62,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from test_torch_tp import FAKE_CHILD, REF_CHILD  # noqa: E402
-from test_torch_tp import _free_port, _save  # noqa: E402
+from test_torch_tp import _free_port, _save, start_counts  # noqa: E402
 
 WORLD = 4
 LOSS_TOL = 2e-3
@@ -226,14 +225,6 @@ torch.distributed.destroy_process_group()
 """
 
 
-def _train_cell(child: str) -> str:
-    """A ``tests/test_torch_tp.py`` counting child, run for the reduced
-    qwen3-14b train cell (B 4, S 64) in place of its prefill and decode."""
-    kinds = '("prefill", "decode")'
-    assert child.count(kinds) == 1
-    return child.replace(kinds, '("train",)')
-
-
 def _nll(lg, tg, vc) -> float:
     """The reference's chunk NLL (``_chunked_lm_loss``'s ``chunk_nll``) on
     whole logits."""
@@ -284,14 +275,8 @@ def run(tmp_path_factory):
         procs.append(subprocess.Popen(
             [sys.executable, "-c", CHILD], env=e, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
-    fake = subprocess.Popen([sys.executable, "-c", _train_cell(FAKE_CHILD)],
-                            env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    ref_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-                   JAX_PLATFORMS="cpu")
-    compiled = subprocess.Popen(
-        [sys.executable, "-c", _train_cell(REF_CHILD)], env=ref_env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # the reduced qwen3-14b train cell (B 4, S 64)
+    fake, compiled = start_counts(env, "qwen3-14b", ("train",))
 
     # the oracles, while the children run; the gradients are written for
     # the children, who wait for each file as they reach its leg
@@ -357,17 +342,18 @@ def test_children_never_import_jax(run):
 
 
 # the sublayers each leg's blocks compute on 'model' shards, by block kind:
-# attention and MLP (the MoE's shared experts for deepseek); the SSM and
-# RG-LRU mixers stay whole, and falcon-mamba has no FFN.  Every leg's LM
-# head is split but whisper's, whose V the model axis does not divide.
-ON_SHARDS = {"mixer": True, "ffn": True}
+# the mixer (attention, SSM or RG-LRU), the MLP (the MoE's shared experts
+# for deepseek) and whisper's cross-attention; falcon-mamba has no FFN.
+# Every leg's LM head is split but whisper's, whose V the model axis does
+# not divide.
+ON_SHARDS = {"mixer": True, "ffn": True, "cross": False}
 TP = {"replicated_kv": {"attn": ON_SHARDS},
       "split_kv": {"attn": ON_SHARDS},
       "deepseek-moe-16b": {"attn": ON_SHARDS},
-      "falcon-mamba-7b": {"ssm": {"mixer": False, "ffn": False}},
-      "whisper-base": {"attn": ON_SHARDS},
-      "recurrentgemma-9b": {"rglru": {"mixer": False, "ffn": True},
-                            "attn": ON_SHARDS}}
+      "falcon-mamba-7b": {"ssm": {"mixer": True, "ffn": False,
+                                  "cross": False}},
+      "whisper-base": {"attn": dict(ON_SHARDS, cross=True)},
+      "recurrentgemma-9b": {"rglru": ON_SHARDS, "attn": ON_SHARDS}}
 HEAD_SPLIT = {cfg: cfg != "whisper-base" for cfg in TP}
 
 
