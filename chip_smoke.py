@@ -193,6 +193,28 @@ Phases (every failure exits nonzero; no phase's failure is caught):
              and its limit, each rank's resident device bytes against its
              spec share, the wall seconds (gloo through host memory, no
              rate claimed) and the launches per kernel.
+11. uneven — ``dist:uneven``: attention on 'model' shards where the
+             model axis divides neither the heads nor the split KV heads.
+             qwen2-vl-7b at full width (28 heads, 4 KV heads), 2 layers,
+             on a (1, 8) mesh of 8 gloo ranks on cuda:0: 4 heads a rank,
+             none on rank 7, half a KV head of ``wk`` / ``wv`` a rank.
+             Prefill (B8, 512-token text prompts, a 520-slot ring) and 8
+             decode steps fed the unsharded run's greedy tokens, every
+             step's logits within the path-parity bound; one train step's
+             loss within 0.02 and gradient norm within 1 % of the one-rank
+             step's; each rank's counted FLOPs of a prefill and a decode
+             step at its share (its heads' share of the prefill attention,
+             1 / 8 of the rest but the second q projection, which it leaves
+             out) within 2 %; flash launched once a layer for each run of
+             the rank's heads that read one KV head (2 or 1), never on
+             rank 7.  The kernel phase holds that grouped call, rank 1's
+             heads 4-7 at B8 S512, to the plain version.
+12. launch — the four serving launchers of ``repro_torch.launch``
+             (``quickstart``, ``control_plane``, ``hetero_topology``,
+             ``work_stealing``) from their ``main`` at their examples'
+             small settings, on the card: each one's wall seconds and
+             kernel launches (flash and rmsnorm by every one), every fleet
+             draining its trace.
 
 The line before the last is the card's name and power limit, the one
 before that the kernels' JSON record, and the last line
@@ -454,6 +476,61 @@ def flash_case(B, H, KV, S, hd, dtype, causal, window, hw, flush):
                bound_by=bound_by, tflops=flops / ms / 1e9,
                bound_share=bound_ms / ms, library_tflops=flops / library_ms / 1e9)
     log("flash_attention", json.dumps(rec))
+    return rec
+
+
+def flash_grouped_case(hw, flush):
+    """The kernel on a tensor-parallel rank's chunk of heads that read KV
+    heads in unequal groups: ``dist:uneven``'s shape, qwen2-vl-7b's 28
+    heads and 4 KV heads on 8 model ranks, rank 1's heads 4-7 reading KV
+    heads 0, 0, 0, 1 (B8 S512 hd128, causal).  ``grouped_attention``
+    launches once per run of heads that read one KV head, K / V never
+    expanded; held to the plain version on the expanded heads."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import grouped_attention, head_runs
+    B, S, hd, first, G = UNEVEN[1], UNEVEN[2], 128, 4, 7
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn(B, S, 4, hd, device="cuda", dtype=torch.bfloat16,
+                    generator=g)
+    k = torch.randn(B, S, 2, hd, device="cuda", dtype=torch.bfloat16,
+                    generator=g)
+    v = torch.randn_like(k)
+    reads = [(first + i) // G - first // G for i in range(4)]
+    assert len(head_runs(first, 4, G)) == 2
+
+    def run():
+        return grouped_attention(ops.flash_attention, q, k, v, first, G,
+                                 causal=True, window=None)
+
+    ops.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    launches = ops.launches["flash_attention"]
+    assert launches == 2, launches
+    hm = lambda t: t.transpose(1, 2).contiguous()  # noqa: E731
+    plain = lambda: FA.flash_attention_hm_plain(  # noqa: E731
+        hm(q), hm(k[:, :, reads]), hm(v[:, :, reads]), causal=True,
+        window=None)
+    want = plain().transpose(1, 2)
+    err = float((got.float() - want.float()).abs().max())
+    tol = FLASH_TOL["bfloat16"]
+    rel = float(((got.float() - want.float()).abs()
+                 / (tol + tol * want.float().abs())).max())
+    assert math.isfinite(err) and rel <= 1.0, \
+        f"grouped flash disagrees: max_abs_err {err} (tol {tol})"
+    pairs = S * (S + 1) // 2
+    flops = 4.0 * B * 4 * hd * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound_ms, bound_by = bound(flops, nbytes, hw.peak_flops, hw)
+    ms = time_ms(run, flush=flush)
+    rec = dict(shape=f"B{B} S{S} heads 4-7 of 28 reading KV heads {reads} "
+               f"hd{hd} bfloat16 causal", launches=launches,
+               max_abs_err=err, tol=tol, ms=ms,
+               plain_ms=time_ms(plain, flush=flush), bound_ms=bound_ms,
+               bound_by=bound_by, bound_share=bound_ms / ms)
+    log("flash_attention:grouped", json.dumps(rec))
     return rec
 
 
@@ -850,12 +927,15 @@ def kernel_phase(hw):
     flash_case(8, 8, 8, 448, 64, "bfloat16", True, None, hw, flush)
     flash_case(1, 28, 4, 2048, 128, "bfloat16", True, None, hw, flush)
     flash_case(1, 16, 16, 2048, 128, "bfloat16", True, None, hw, flush)
+    grouped = flash_grouped_case(hw, flush)
     norm_case(8 * 1500, 512, "bfloat16", hw, flush)
     norm_case(4 * 2048, 3584, "bfloat16", hw, flush)
     norm_case(4 * 2048, 2048, "bfloat16", hw, flush)
     del flush
     torch.cuda.empty_cache()
-    return {"flash_attention": flash[(2048, "bfloat16")], "rmsnorm": norm,
+    return {"flash_attention": dict(flash[(2048, "bfloat16")],
+                                    grouped_entry=grouped),
+            "rmsnorm": norm,
             "ssm_scan": dict(sel, abc_entry=dict(
                 ssm, source="src/repro_torch/kernels/csrc/linear_scan.cu")),
             "rglru_scan": rglru,
@@ -3373,6 +3453,320 @@ def dist_phase(smi):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# dist:uneven: attention on 'model' shards where the model axis divides
+# neither the heads nor the split KV heads, 8 ranks on the one card
+# ---------------------------------------------------------------------------
+
+UNEVEN_MESH = (1, 8)               # (data, model): 8 ranks, gloo, cuda:0
+UNEVEN_RANKS = UNEVEN_MESH[0] * UNEVEN_MESH[1]
+# qwen2-vl-7b at full width (28 heads, 4 KV heads, hd 128, d_model 3584),
+# text-only prompts: layers, B, prompt, window, decode steps
+UNEVEN = (2, 8, 512, 520, 8)
+# the train step's runtime: the trainer's plain path, remat, one loss chunk
+UNEVEN_TRAIN_RT = dict(use_kernels=False, remat=True, loss_chunk=512)
+
+
+def _uneven_cfg():
+    from repro_torch.configs import get_config
+    return get_config("qwen2-vl-7b").replace(num_layers=UNEVEN[0])
+
+
+def _uneven_heads(rank: int):
+    """Rank ``rank``'s q heads (``attention.head_range``'s ceil(H / n)
+    chunk) and its flash launches a layer (``attention.head_runs``)."""
+    from repro_torch.models.attention import head_runs
+    cfg = _uneven_cfg()
+    H, G = cfg.num_heads, cfg.num_heads // cfg.num_kv_heads
+    c = -(-H // UNEVEN_MESH[1])
+    heads = list(range(min(H, rank * c), min(H, (rank + 1) * c)))
+    return heads, len(head_runs(rank * c, len(heads), G))
+
+
+def uneven_references(d):
+    """The leg's unsharded path on this process's card, saved under ``d``
+    for the ranks: its count on ``meta``, prefill and greedy decode with
+    the kernels, and the train step's loss and gradient norm."""
+    import torch
+    from repro_torch.models import transformer as T
+    cfg = _uneven_cfg()
+    L, B, S, W, steps = UNEVEN
+    t0 = time.perf_counter()
+    ref = {"count": _tp_count(T.init_model(cfg, torch.Generator(), "meta"),
+                              torch.empty((B, S), dtype=torch.long,
+                                          device="meta"), cfg, W)}
+    params = T.init_model(cfg, torch.Generator("cuda").manual_seed(SEED),
+                          "cuda")
+    prompts = _dist_tokens(cfg, B, S, 11).cuda()
+    rt = T.Runtime(use_kernels=True)
+    with torch.no_grad():
+        logits, st = T.prefill(params, {"tokens": prompts}, cfg, rt,
+                               window=W)
+        seen, fed = [logits.float().cpu()], []
+        for _ in range(steps):
+            tok = logits.argmax(-1, keepdim=True)
+            fed.append(tok.cpu())
+            logits, st = T.decode_step(params, st, tok, cfg, rt)
+            seen.append(logits.float().cpu())
+    ref.update(logits=seen, tokens=fed)
+    del st, logits
+    leaves = [p.requires_grad_(True) for p in _tensors(params)]
+    loss, _ = T.loss_fn(params, {"tokens": _dist_tokens(cfg, B, S, 12)
+                                 .cuda()}, cfg,
+                        T.Runtime(**UNEVEN_TRAIN_RT))
+    grads = torch.autograd.grad(loss, leaves)
+    ref["loss"] = float(loss.detach())
+    ref["grad_norm"] = float(torch.sqrt(sum((g.float() ** 2).sum()
+                                            for g in grads)))
+    ref["ref_s"] = time.perf_counter() - t0
+    del params, leaves, grads, loss
+    torch.save(ref, d / "ref.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def uneven_rank(rank, port, d, q):
+    """One rank of ``dist:uneven``: joins the gloo group of 8 and runs the
+    leg on the (1, 8) mesh."""
+    import traceback
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(UNEVEN_RANKS),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    res = {"rank": rank}
+    try:
+        _uneven_rank(Path(d), res)
+    except BaseException:
+        res["error"] = traceback.format_exc()
+    q.put(res)
+
+
+def _uneven_rank(d, res):
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.core.fusion import MeshPlan
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import collectives, shardctx
+    from repro_torch.train import Trainer
+
+    res["backend"] = meshlib.init_distributed()
+    assert res["backend"] == "gloo", res["backend"]
+    m = MeshPlan("tp", data=UNEVEN_MESH[0], model=UNEVEN_MESH[1]).build(
+        "cuda")
+    res["model"] = m.get_local_rank("model")
+    ref = torch.load(d / "ref.pt")
+    cfg = _uneven_cfg()
+    L, B, S, W, steps = UNEVEN
+
+    def leg():
+        whole = T.init_model(cfg, torch.Generator("cuda").manual_seed(SEED),
+                             "cuda")
+        params = shardctx.layout_tree(
+            whole, _model_only(T.model_pspecs(cfg)[1]), m)
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        prompts = _dist_tokens(cfg, B, S, 11).cuda()
+        rt = T.Runtime(use_kernels=True)
+        diffs, limits = [], []
+        t0 = time.perf_counter()
+        with torch.no_grad(), shardctx.use_mesh(m):
+            logits, st = T.prefill(params, {"tokens": prompts}, cfg, rt,
+                                   window=W)
+            k0 = st.reps[0]["self"].k
+            ring = (k0.shape[2], shardctx.local(k0).shape[2])
+            for i in range(steps + 1):
+                want = ref["logits"][i]
+                diffs.append(float((logits.float().cpu() - want)
+                                   .abs().max()))
+                limits.append(_parity_limit(want))
+                if i < steps:
+                    logits, st = T.decode_step(params, st,
+                                               ref["tokens"][i].cuda(),
+                                               cfg, rt)
+        del st
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        with shardctx.use_mesh(m):
+            count = _tp_count(params, prompts, cfg, W)
+        tr = Trainer(cfg, ShapeConfig("uneven", S, B, "train"),
+                     TrainConfig(), rt=T.Runtime(**UNEVEN_TRAIN_RT), mesh=m,
+                     device="cuda")
+        t0 = time.perf_counter()
+        loss, _, grads = tr.loss_and_grads(
+            params, {"tokens": _dist_tokens(cfg, B, S, 12).cuda()})
+        # the global gradient norm: each leaf's local squares, replicated
+        # leaves counted once
+        sq = sum(float((shardctx.local(g).float() ** 2).sum())
+                 / shardctx.replication(g) for g in _tensors(grads))
+        with shardctx.use_mesh(m):
+            sq = collectives.psum(torch.tensor([sq], dtype=torch.float64),
+                                  "model")
+        torch.cuda.synchronize()
+        return dict(diff=diffs, limit=limits, ring_slots=ring, run_s=run_s,
+                    count=count, weights=_tp_weights(params, cfg, m),
+                    loss=float(loss), ref_loss=ref["loss"],
+                    grad_norm=float(sq.sqrt()), ref_grad_norm=ref["grad_norm"],
+                    train_s=time.perf_counter() - t0)
+
+    _leg("uneven", leg, res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def uneven_phase(smi):
+    """``dist:uneven``: qwen2-vl-7b at full width on a (1, 8) mesh of 8
+    gloo ranks on cuda:0 (28 heads: 4 a rank, none on rank 7; the split
+    ``wk`` / ``wv`` half a KV head a rank).  Prefill and 8 decode steps fed
+    the unsharded run's greedy tokens, every step's logits within the
+    path-parity bound; one train step's loss within 0.02 and its gradient
+    norm within 1 % of the unsharded step's; each rank's counted FLOPs of
+    a prefill and decode step at its share (its heads' share of the
+    prefill attention, 1 / 8 of the rest, which the whole path computes
+    but for its second q projection); flash launched once a run of the
+    rank's heads that read one KV head a layer, never on rank 7."""
+    import shutil
+    import torch.multiprocessing as mp
+    d = ROOT / "build" / "uneven"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    ref = uneven_references(d)
+    whole, ref_s = ref["count"], ref["ref_s"]
+    del ref
+    released(0)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=uneven_rank, args=(r, port, str(d), q))
+             for r in range(UNEVEN_RANKS)]
+    for p in procs:
+        p.start()
+    outs = []
+    try:
+        for _ in procs:
+            outs.append(q.get(timeout=600))
+        for p in procs:
+            p.join(timeout=120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    errors = [o for o in outs if "error" in o]
+    assert not errors, "\n".join(o["error"] for o in errors)
+    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
+    per = [o["uneven"] for o in sorted(outs, key=lambda o: o["model"])]
+    cfg = _uneven_cfg()
+    L, B, S, W, _ = UNEVEN
+    H, hd, D, n = (cfg.num_heads, cfg.resolved_head_dim, cfg.d_model,
+                   UNEVEN_MESH[1])
+    # the whole count's prefill attention (chunked: every (q, k) pair of
+    # the one block, two einsums a layer) and its second q projection
+    # (prefill_cache's, which a rank whose columns are not whole heads
+    # leaves out)
+    core = L * 2 * 2.0 * B * S * S * H * hd
+    q2 = L * 2.0 * B * S * D * H * hd
+    shares, launches = [], []
+    for r, p in enumerate(per):
+        heads, runs = _uneven_heads(r)
+        share = (whole["flops"] - core - q2) / n + core * len(heads) / H
+        shares.append(share)
+        launches.append(L * runs)
+        assert all(a <= b for a, b in zip(p["diff"], p["limit"])), \
+            (r, p["diff"], p["limit"])
+        assert abs(p["loss"] - p["ref_loss"]) <= DIST_TRAIN_TOL, p
+        assert abs(p["grad_norm"] / p["ref_grad_norm"] - 1) <= \
+            DIST_NORM_REL, p
+        assert abs(p["count"]["flops"] / share - 1) <= TP_FLOPS_REL, \
+            (r, p["count"]["flops"], share)
+        assert p["ring_slots"] == (W, W // n), p["ring_slots"]
+        for k, (mine, full) in p["weights"].items():
+            assert mine * (n if k in TP_SPLIT else 1) == full, (r, k)
+        assert p["launches"]["flash_attention"] == L * runs, \
+            (r, p["launches"])
+        assert p["launches"]["rmsnorm"] > 0, (r, p["launches"])
+    assert launches[-1] == 0 and all(x > 0 for x in launches[:-1])
+    log("dist:uneven:tp", json.dumps(dict(
+        arch=cfg.name, layers=L, mesh=list(UNEVEN_MESH), batch=B, prompt=S,
+        window=W, steps=UNEVEN[4],
+        heads=[_uneven_heads(r)[0] for r in range(n)],
+        rank_flops=[p["count"]["flops"] for p in per],
+        whole_batch_flops=whole["flops"], prefill_attention_flops=core,
+        second_q_flops=q2, share_flops=shares,
+        ratio=[p["count"]["flops"] / x for p, x in zip(per, shares)],
+        rank_flops_by_op=[p["count"]["by_op"] for p in per],
+        coll_bytes=[p["count"]["coll"] for p in per],
+        gathered_bytes=[sum(a for a, _ in p["weights"].values())
+                        for p in per],
+        max_diff=max(max(p["diff"]) for p in per),
+        min_limit=min(min(p["limit"]) for p in per),
+        loss=[p["loss"] for p in per], ref_loss=per[0]["ref_loss"],
+        grad_norm=[p["grad_norm"] for p in per],
+        ref_grad_norm=per[0]["ref_grad_norm"],
+        flash_launches=[p["launches"]["flash_attention"] for p in per],
+        run_s=[p["run_s"] for p in per], train_s=[p["train_s"] for p in per],
+        wall_s=[p["wall_s"] for p in per],
+        peak_gb=[p["peak_gb"] for p in per],
+        host_peak_gb=[p["host_peak_gb"] for p in per],
+        ref_s=ref_s, phase_wall_s=wall, card=smi)))
+    return {"dist:uneven": {k: sum(p["launches"][k] for p in per)
+                            for k in per[0]["launches"]}}
+
+
+# ---------------------------------------------------------------------------
+# launch: the example launchers on the card
+# ---------------------------------------------------------------------------
+
+# the serving launchers at their examples' smallest settings
+LAUNCHES = (("quickstart", []),
+            ("control_plane", ["--groups", "2", "--capacity", "4",
+                               "--horizon", "40", "--variants", "1"]),
+            ("hetero_topology", ["--groups", "2", "--capacity", "4",
+                                 "--horizon", "40"]),
+            ("work_stealing", ["--groups", "2", "--capacity", "4",
+                               "--horizon", "40"]))
+
+
+def launch_phase(smi):
+    """The four serving launchers of ``repro_torch.launch`` on the card,
+    each from its ``main`` as a user calls it: their wall seconds and
+    kernel launches (zeroed just before each, read just after), flash and
+    rmsnorm launched by every one; each fleet drains its trace."""
+    import importlib
+    import io
+    from repro_torch.kernels import ops
+    by_path = {}
+    for name, args in LAUNCHES:
+        mod = importlib.import_module(f"repro_torch.launch.{name}")
+        buf = io.StringIO()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(args)
+        wall = time.perf_counter() - t0
+        got = dict(ops.launches)
+        assert got["flash_attention"] > 0 and got["rmsnorm"] > 0, (name, got)
+        fleets = out.get("fleet", {})
+        fleets = [fleets] if "completed" in fleets else list(fleets.values())
+        for f in fleets:
+            assert f["completed"] == f["submitted"] > 0, (name, f)
+        if name == "quickstart":
+            assert out["serve"]["completed"] == 12, out["serve"]
+        by_path[f"launch:{name}"] = got
+        log(f"launch:{name}", json.dumps(dict(
+            args=args, wall_s=wall, launches=got,
+            completed=[f["completed"] for f in fleets],
+            wall_ticks=[f["wall_ticks"] for f in fleets],
+            printed=buf.getvalue().splitlines()[-4:], card=smi)))
+    return by_path
+
+
 def main() -> int:
     # cuBLAS's deterministic workspace, read when CUDA starts: the whisper
     # train phase runs under torch.use_deterministic_algorithms
@@ -3451,6 +3845,12 @@ def run_phases(torch, smi, cells) -> int:
     t = time.perf_counter()
     by_phase.update(dist_phase(smi))
     log(f"dist: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    by_phase.update(uneven_phase(smi))
+    log(f"dist:uneven: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    by_phase.update(launch_phase(smi))
+    log(f"launch: {time.perf_counter() - t:.1f} s")
 
     kernels = []
     for name, src, tpu in [
@@ -3475,7 +3875,7 @@ def run_phases(torch, smi, cells) -> int:
             launches_by_path={a: v[name] for a, v in by_phase.items()},
             **{k: rec[k] for k in ("device_ms", "unfused_ms", "abc_entry",
                                    "rows_entry", "prefill_store",
-                                   "grad_rows_entry")
+                                   "grad_rows_entry", "grouped_entry")
                if k in rec}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

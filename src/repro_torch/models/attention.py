@@ -29,18 +29,30 @@ place (the int8 store by offset, on each shard): a functional copy of every
 layer's cache per token would move the whole cache through memory once per
 step for nothing.
 
-Under tensor parallelism (``tp``, the serving path under a mesh with
-model ranks) the projections take this rank's 'model' shards of the
-weights: q on the rank's ``H / n`` heads, k / v on its KV heads where
-their spec splits them or on every KV head where it replicates them (the
-rank's q heads then read the run of them their GQA groups use; decode
-projects its column chunk of them instead); ``wo`` is row-parallel and
-the partial sums add over 'model'.  The prefill cache and the decode core
-take every KV head and q whole, as the reference's ring and ``shard_map``
-do, so the rank's heads are all-gathered over 'model' first.  Whisper's
-cross-attention takes the same path with k / v projected from the encoder
-output; its decode cache (``build_cross_cache``) is laid out over 'model'
-by encoder position like a ring, and its decode step projects q alone.
+Under tensor parallelism (``tp``, every entry point under a mesh with
+model ranks) the weights are this rank's 'model' shards as the reference's
+specs split them, whether or not the model axis divides the heads.  Rank
+``r`` of ``n`` computes the q heads ``[r·c, min(H, (r+1)·c))``, ``c =
+ceil(H / n)``, as GSPMD pads a head dimension the axis does not divide
+(qwen3-14b's 40 heads on 16 ranks: 3, ..., 3, 1, 0, 0), and the KV heads
+those heads read.  Each rank projects its columns of ``wq`` (and of split
+``wk`` / ``wv``; a replicated ``wk`` / ``wv`` whole, its heads taken);
+where those columns are not its heads' (the axis does not divide H, or the
+KV heads of a split ``wk``), the projections are all-gathered over 'model'
+and the rank's heads taken.  ``wo`` is row-parallel: where the axis does
+not divide H the heads' outputs are all-gathered too and each rank takes
+``wo``'s rows as its spec splits them; the partial sums add over 'model'.
+A rank without heads computes no attention and joins every collective.  Q
+heads that read KV heads in unequal groups (heads 4-7 of qwen2-vl-7b's 28
+on 8 ranks read KV heads 0, 0, 0, 1) are attended once per run of heads
+that read one KV head (:func:`grouped_attention`); K / V are never
+expanded.  The prefill cache and the decode core take every KV head and q
+whole, as the reference's ring and ``shard_map`` do, so the rank's columns
+are all-gathered over 'model' first; the decode step takes its chunk of
+the heads' columns for ``wo``.  Whisper's cross-attention takes the same
+path with k / v projected from the encoder output; its decode cache
+(``build_cross_cache``) is laid out over 'model' by encoder position like
+a ring, and its decode step projects q alone.
 
 KV caches are ring buffers: slot ``i`` holds absolute position
 ``p_i = pos - ((pos - i) mod W)`` (valid iff ``p_i >= 0``), which
@@ -120,56 +132,34 @@ def _heads(params, q, k, v, cfg: ModelConfig, positions,
            apply_positions=True, use_kernels: bool = False):
     """Projections (B, S, heads * hd) as heads, qk-normed and rotated.  The
     head counts come from the widths: all heads, or this rank's under
-    tensor parallelism."""
+    tensor parallelism.  q may be None (the cache needs k and v alone)."""
     hd = cfg.resolved_head_dim
-    q = q.reshape(*q.shape[:2], -1, hd)
-    k = k.reshape(*k.shape[:2], -1, hd)
-    v = v.reshape(*v.shape[:2], -1, hd)
+    q, k, v = (None if t is None else t.reshape(*t.shape[:2],
+                                                t.shape[2] // hd, hd)
+               for t in (q, k, v))
     if cfg.qk_norm and "q_norm" in params:
-        q = layers.rmsnorm_headwise(params["q_norm"], q, cfg.norm_eps,
-                                    use_kernel=use_kernels)
+        if q is not None:
+            q = layers.rmsnorm_headwise(params["q_norm"], q, cfg.norm_eps,
+                                        use_kernel=use_kernels)
         k = layers.rmsnorm_headwise(params["k_norm"], k, cfg.norm_eps,
                                     use_kernel=use_kernels)
     if apply_positions and positions is not None:
-        if cfg.mrope:
-            q = layers.apply_mrope(q, positions, cfg.rope_theta,
-                                   cfg.mrope_sections)
-            k = layers.apply_mrope(k, positions, cfg.rope_theta,
-                                   cfg.mrope_sections)
-        else:
-            q = layers.apply_rope(q, positions, cfg.rope_theta)
-            k = layers.apply_rope(k, positions, cfg.rope_theta)
+        rope = ((lambda t: layers.apply_mrope(t, positions, cfg.rope_theta,
+                                              cfg.mrope_sections))
+                if cfg.mrope else
+                (lambda t: layers.apply_rope(t, positions, cfg.rope_theta)))
+        q = None if q is None else rope(q)
+        k = rope(k)
     return q, k, v
 
 
-def _kv_split(k: torch.Tensor, cfg: ModelConfig) -> bool:
-    """Under tensor parallelism: whether k (B,S,*,hd) holds only this
-    rank's KV heads (``wk``'s resolved spec splits it over 'model'), as
-    opposed to all of them (the spec replicates it)."""
-    return k.shape[2] != cfg.num_kv_heads
-
-
-def _kv_for_local_heads(q, k, v, cfg: ModelConfig):
-    """The KV heads this rank's q heads read, in their GQA grouping.
-
-    q holds the rank's ``H / n`` heads ``[r·H/n, (r+1)·H/n)``.  Split k/v
-    already hold their KV heads; replicated k/v hold every KV head (each
-    rank projects them all, as GSPMD does), of which q head ``h`` reads
-    ``h // (H / KV)``: the contiguous run of them the rank's heads read is
-    kept.  A run the rank's heads do not read in equal groups raises.
-    """
-    if _kv_split(k, cfg):
-        return k, v
-    Hl = q.shape[2]
-    G = cfg.num_heads // cfg.num_kv_heads
-    first = shardctx.axis_index("model") * Hl
-    reads = [(first + i) // G for i in range(Hl)]
-    lo, nk = reads[0], reads[-1] - reads[0] + 1
-    if Hl % nk or reads != [lo + i // (Hl // nk) for i in range(Hl)]:
-        raise ValueError(f"tensor-parallel attention: q heads [{first}, "
-                         f"{first + Hl}) do not read KV heads in equal "
-                         f"groups ({cfg.num_heads}/{cfg.num_kv_heads} heads)")
-    return k[:, :, lo:lo + nk], v[:, :, lo:lo + nk]
+def head_range(num_heads: int) -> Tuple[int, int]:
+    """This rank's q heads under tensor parallelism: ``[r·c, min(H,
+    (r+1)·c))`` with ``c = ceil(H / n)`` on model rank ``r`` of ``n`` (the
+    whole range without a mesh)."""
+    n, r = shardctx.axis_size("model"), shardctx.axis_index("model")
+    c = -(-num_heads // n)
+    return min(num_heads, r * c), min(num_heads, (r + 1) * c)
 
 
 def _gather_columns(*ts: torch.Tensor):
@@ -247,6 +237,82 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def head_runs(first: int, heads: int, group: int):
+    """How :func:`grouped_attention` splits q heads ``[first, first +
+    heads)``, of which head ``h`` reads KV head ``h // group``: a list of
+    (q heads, KV heads) slices into the rank's q and k / v, one a call.
+
+    An attention call maps its q head ``i`` to KV head ``i // (Hl / KV)``:
+    one call where the heads read their KV heads in such equal groups, else
+    one per run of heads that read one KV head (heads 4-7 of 28 reading KV
+    heads 0, 0, 0, 1: two calls), so K / V are never expanded to one head
+    per q head.
+    """
+    reads = [(first + i) // group - first // group for i in range(heads)]
+    nk = reads[-1] + 1 if reads else 0
+    if heads and heads % nk == 0 and \
+            reads == [i // (heads // nk) for i in range(heads)]:
+        return [(slice(0, heads), slice(0, nk))]
+    runs, i = [], 0
+    while i < heads:
+        j = i
+        while j < heads and reads[j] == reads[i]:
+            j += 1
+        runs.append((slice(i, j), slice(reads[i], reads[i] + 1)))
+        i = j
+    return runs
+
+
+def grouped_attention(attend, q, k, v, first: int, group: int, **kw):
+    """``attend`` (``chunked_attention`` or the flash kernel) over q heads
+    ``[first, first + Hl)`` and the KV heads they read, ``h // group``
+    from ``first // group`` on, one call a run of :func:`head_runs`."""
+    outs = [attend(q[:, :, qs], k[:, :, ks], v[:, :, ks], **kw)
+            for qs, ks in head_runs(first, q.shape[2], group)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def _tp_heads(params, x, src, cfg: ModelConfig, positions,
+              use_kernels: bool):
+    """Tensor parallelism: (q, k, v, first, empty) of this rank's q heads
+    ``[first, first + Hl)`` (:func:`head_range`) and the KV heads they read,
+    normed and rotated; ``empty`` None.  A rank without heads gets q, k, v
+    None and for ``empty`` a (B, S, 0) tensor that depends on every weight
+    the others use, so that its backward joins their gradients'
+    all-reduces."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    n = shardctx.axis_size("model")
+    lo, hi = head_range(H)
+    G = H // KV
+    klo, khi = lo // G, -(-hi // G)
+    wk, wv = params["wk"], params["wv"]
+    split = wk.shape[1] != KV * hd
+    q, k, v = x @ params["wq"], src @ wk, src @ wv
+    # the rank's columns are not its heads' where the axis does not divide
+    # H (q), or the KV heads of a split wk / wv: gathered, its heads taken.
+    # A replicated wk / wv projects every KV head (one, for the full
+    # configs' MQA), of which the rank takes those its heads read
+    gq, gkv = H % n != 0, split and KV % n != 0
+    if gq or gkv:
+        whole = _gather_columns(*([q] if gq else []) +
+                                ([k, v] if gkv else []))
+        if gq:
+            q = whole.pop(0)
+        if gkv:
+            k, v = whole
+    if gq:
+        q = q[:, :, lo * hd:hi * hd]
+    if gkv or not split:
+        k, v = (t[:, :, klo * hd:khi * hd] for t in (k, v))
+    if hi == lo:
+        # nothing to attend; the plain ops on the empty heads launch nothing
+        q, k, v = _heads(params, q, k, v, cfg, positions)
+        return None, None, None, lo, q.flatten(2) + (k.sum() + v.sum())
+    q, k, v = _heads(params, q, k, v, cfg, positions,
+                     use_kernels=use_kernels)
+    return q, k, v, lo, None
+
+
 def full_attention(params, x, positions, cfg: ModelConfig, *,
                    causal: bool = True, encoder_out=None,
                    use_flash: bool = False, use_kernels: bool = False,
@@ -257,24 +323,44 @@ def full_attention(params, x, positions, cfg: ModelConfig, *,
     ``use_flash`` takes the CUDA flash kernel and, like the reference,
     ignores ``q_block``/``kv_block`` (the kernel has its own tiles);
     ``use_kernels`` routes the qk-norm through the rmsnorm kernel.  With
-    ``tp`` (self-attention) the weights are this rank's 'model' shards:
-    q/k/v, qk-norm, RoPE and attention run on the rank's heads, ``wo`` is
-    row-parallel on their rows and the partial sums add over 'model'.
+    ``tp`` the weights are this rank's 'model' shards: q/k/v, qk-norm, RoPE
+    and attention run on the rank's heads (:func:`_tp_heads`), ``wo`` is
+    row-parallel and the partial sums add over 'model' (module docstring).
     """
     cross = encoder_out is not None
-    q, k, v = _project_qkv(params, x, cfg, None if cross else positions,
-                           kv_source=encoder_out, use_kernels=use_kernels)
+    pos = None if cross else positions
+    B, S = x.shape[:2]
+    hd = cfg.resolved_head_dim
     if tp:
-        k, v = _kv_for_local_heads(q, k, v, cfg)
-    window = None if cross else cfg.attn_window
-    if use_flash:
-        out = kernel_ops.flash_attention(q, k, v, causal=causal and not cross,
-                                         window=window)
+        q, k, v, first, empty = _tp_heads(
+            params, x, x if encoder_out is None else encoder_out, cfg, pos,
+            use_kernels)
     else:
-        out = chunked_attention(q, k, v, causal=causal and not cross,
-                                window=window, q_block=q_block,
-                                kv_block=kv_block)
-    out = out.reshape(x.shape[0], x.shape[1], -1) @ params["wo"]
+        q, k, v = _project_qkv(params, x, cfg, pos, kv_source=encoder_out,
+                               use_kernels=use_kernels)
+        first = 0
+    window = None if cross else cfg.attn_window
+    if q is None:
+        out = empty                              # no heads on this rank
+    else:
+        if use_flash:
+            attend = kernel_ops.flash_attention
+            kw = {}
+        else:
+            attend = chunked_attention
+            kw = dict(q_block=q_block, kv_block=kv_block)
+        out = grouped_attention(attend, q, k, v, first,
+                                cfg.num_heads // cfg.num_kv_heads,
+                                causal=causal and not cross, window=window,
+                                **kw).reshape(B, S, -1)
+    if tp and cfg.num_heads % shardctx.axis_size("model"):
+        # the heads' outputs, padded to c heads a rank, gathered; wo's rows
+        # as the spec splits them
+        c = -(-cfg.num_heads // shardctx.axis_size("model"))
+        out = torch.nn.functional.pad(out, (0, c * hd - out.shape[2]))
+        out = collectives.all_gather(out, 2, "model")
+        out = shardctx.model_chunk(out[:, :, :cfg.num_heads * hd], 2)
+    out = out @ params["wo"]
     return collectives.psum(out, "model") if tp else out
 
 
@@ -396,8 +482,9 @@ def decode_attention(params, cache: KVCache, x_new: torch.Tensor,
     shards: q and the new k/v are projected column-parallel (the rank's
     heads; its column chunk of a replicated ``wk`` / ``wv``) and
     all-gathered over 'model' for the core, which takes heads whole (the
-    reference's ``shard_map`` in_specs); ``wo`` is row-parallel on the
-    rank's heads and the partial sums add over 'model'.
+    reference's ``shard_map`` in_specs); ``wo`` is row-parallel on its
+    rows as the spec splits them (a chunk of the heads' columns, 2.5 heads
+    for qwen3-14b on 16 ranks) and the partial sums add over 'model'.
     """
     B = x_new.shape[0]
     W = cache.k.shape[1]
@@ -447,9 +534,10 @@ def decode_attention(params, cache: KVCache, x_new: torch.Tensor,
         out, new_cache = _decode_core(q, cache, new_k, new_v, pos, W=W,
                                       offset=0, s_loc=W, update=update,
                                       use_kernels=use_kernels)
+    out = out.reshape(B, 1, -1)
     if tp:
-        out = shardctx.model_chunk(out, 2)               # the rank's heads
-    out = out.reshape(B, 1, -1) @ params["wo"]
+        out = shardctx.model_chunk(out, 2)        # wo's rows as split
+    out = out @ params["wo"]
     if tp:
         out = collectives.psum(out, "model")
     return out, new_cache
@@ -481,12 +569,19 @@ def prefill_cache(params, x, positions, cfg: ModelConfig,
 
     With ``tp`` the weights are this rank's 'model' shards; the ring holds
     every KV head on each model rank, as the reference's does, so split
-    k/v are all-gathered over 'model' along the heads first.
+    k/v are all-gathered over 'model' first.  The reference projects q here
+    too (XLA's CSE removes that copy); the port keeps that projection where
+    q's columns are whole heads, so the counts stay comparable (ROADMAP).
     """
-    _, k, v = _project_qkv(params, x, cfg, positions, use_kernels=use_kernels)
-    if tp and _kv_split(k, cfg):
-        k, v = (t.reshape(*k.shape[:2], -1, k.shape[3])
-                for t in _gather_columns(k.flatten(2), v.flatten(2)))
+    hd = cfg.resolved_head_dim
+    k, v = x @ params["wk"], x @ params["wv"]
+    if tp and k.shape[-1] != cfg.num_kv_heads * hd:
+        k, v = _gather_columns(k, v)
+    q = None
+    if not tp or cfg.num_heads % shardctx.axis_size("model") == 0:
+        q = x @ params["wq"]
+    _, k, v = _heads(params, q, k, v, cfg, positions,
+                     use_kernels=use_kernels)
     W = window_override or (min(x.shape[1], cfg.attn_window)
                             if cfg.attn_window else x.shape[1])
     if cfg.attn_window:

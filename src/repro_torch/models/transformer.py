@@ -59,10 +59,11 @@ positions, and the SSM and RG-LRU states its channels (``DTensor``s over
 the model axis), where the model axis divides them.  The LM loss is
 vocab-parallel: each rank scores its V / n logits and the log-sum-exp and
 the picked logit add over 'model' (:func:`_vocab_parallel_nll`), so no
-rank holds (B, c, V) fp32 logits.  An attention whose heads the model axis
-does not divide, and a mixer whose channels it does not divide, compute
-whole on the rank's rows; the routed experts keep ``moe_sharded``'s
-expert-parallel layout.
+rank holds (B, c, V) fp32 logits.  Attention is on shards whatever the
+head counts: where the model axis does not divide the heads, each rank
+computes its ``ceil(H / n)`` of them, as GSPMD pads the head dimension.  A
+mixer whose channels the axis does not divide computes whole on the rank's
+rows; the routed experts keep ``moe_sharded``'s expert-parallel layout.
 """
 from __future__ import annotations
 
@@ -329,9 +330,11 @@ def _tp_block_params(params: Dict[str, Any], cfg: ModelConfig, kind: str,
     'data' only (``shardctx.model_shard``); a leaf the spec replicates
     whole.  The sublayers:
 
-    * self- and cross-attention, where the model axis divides the heads
-      (and the KV heads, where the spec splits ``wk`` / ``wv``); else
-      whole, as qwen3-14b's 40 heads on 16 model ranks are;
+    * self- and cross-attention, wherever the spec splits ``wq``, whether
+      or not the model axis divides the heads or the KV heads (each rank
+      computes its chunk of heads, as GSPMD pads them:
+      ``attention.head_range``); whole only where the resolved spec
+      replicates ``wq``;
     * the SSM and RG-LRU mixers, where every leaf their specs name 'model'
       on is split (the model axis divides ``d_inner`` or W); else whole.
       The SSM's ``in_proj`` is gathered whole and the rank's x and z
@@ -345,7 +348,6 @@ def _tp_block_params(params: Dict[str, Any], cfg: ModelConfig, kind: str,
     :func:`_pin_block_params`'s.
     """
     specs = block_pspecs(cfg, kind, cross="cross_attn" in params)
-    n = shardctx.axis_size("model")
     out: Dict[str, Any] = {}
     tp = dict(_NO_TP)
 
@@ -370,9 +372,7 @@ def _tp_block_params(params: Dict[str, Any], cfg: ModelConfig, kind: str,
                 (dims["wk"] is None) != (dims["wv"] is None):
             raise ValueError(f"tensor-parallel attention: specs split "
                              f"{dims} over 'model' inconsistently")
-        heads_divide = cfg.num_heads % n == 0 and (
-            dims["wk"] is None or cfg.num_kv_heads % n == 0)
-        if dims["wq"] is not None and heads_divide:
+        if dims["wq"] is not None:
             out[sub], tp[key] = take(params[sub], dims), True
 
     if kind == "attn":

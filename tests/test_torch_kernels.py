@@ -491,6 +491,59 @@ def test_flash_cuda_matches_plain(cuda, B, S, Skv, H, KV, hd, dtype, causal,
     np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
 
 
+# a tensor-parallel rank's chunk of heads whose KV heads it reads in
+# unequal groups: qwen2-vl-7b's 28 heads and 4 KV heads on 8 model ranks,
+# rank 1's heads 4-7 reading KV heads 0, 0, 0, 1 (B, S, first head, heads,
+# KV heads, hd, group)
+GROUPED = (2, 256, 4, 4, 2, 128, 7)
+
+
+def _grouped_inputs(dtype, device="cpu"):
+    B, S, first, H, KV, hd, group = GROUPED
+    q, k, v = (_t(a, dtype, device) for a in _flash_inputs(B, S, S, H, KV,
+                                                           hd))
+    # the q heads' KV heads, expanded for the reference alone
+    reads = [(first + i) // group - first // group for i in range(H)]
+    return q, k, v, k[:, :, reads], v[:, :, reads]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_grouped_runs_match_expanded_heads(dtype):
+    """``attention.grouped_attention`` over heads that read KV heads in
+    unequal groups, on the CPU (the flash wrapper's plain version and the
+    chunked path): the same values as every q head against its own KV head,
+    K / V never expanded."""
+    from repro_torch.models import attention as A
+    q, k, v, ke, ve = _grouped_inputs(dtype)
+    first, group = GROUPED[2], GROUPED[6]
+    want = ops.flash_attention(q, ke, ve, causal=True)
+    for attend in (ops.flash_attention, A.chunked_attention):
+        got = A.grouped_attention(attend, q, k, v, first, group, causal=True,
+                                  window=None)
+        tol = _tol(dtype)
+        np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_cuda_grouped_runs_match_plain(cuda, dtype):
+    """The kernel on a rank's chunk of heads that read KV heads in unequal
+    groups: one launch per run of heads that read one KV head (two here),
+    against the plain version on the expanded heads."""
+    from repro_torch.models import attention as A
+    q, k, v, ke, ve = _grouped_inputs(dtype, cuda)
+    ops.reset_launches()
+    got = A.grouped_attention(ops.flash_attention, q, k, v, GROUPED[2],
+                              GROUPED[6], causal=True, window=None)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == 2
+    want = FA.flash_attention_hm_plain(
+        q.transpose(1, 2), ke.transpose(1, 2), ve.transpose(1, 2),
+        causal=True, window=None).transpose(1, 2)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-4
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,D,dtype,sdtype", NORM_SWEEP)
 def test_rmsnorm_cuda_matches_plain(cuda, T, D, dtype, sdtype):

@@ -26,15 +26,22 @@ process meanwhile, within 2e-3 (as ``tests/test_multidevice.py``):
   beside RG-LRU mixers on shards), falcon-mamba-7b (SSM mixers on shards,
   the tied LM head row-parallel), deepseek-moe-16b (``moe_sharded`` beside
   the attention);
-* heads the model axis does not divide compute whole, and q heads that read
-  their KV heads in unequal groups raise.
+* heads the model axis does not divide (6 heads on (1, 4): 2, 2, 2, 0 a
+  rank), and q heads that read replicated KV heads in unequal groups (12
+  heads, 6 KV heads on (1, 4)), on shards: prefill and 2 greedy decode
+  steps;
+* split KV heads the model axis does not divide: reduced qwen2-vl-7b with
+  28 heads and 4 KV heads on a (1, 8) mesh of 8 more children (4 heads a
+  rank, none on rank 7; half a KV head of ``wk`` / ``wv`` a rank):
+  prefill, 2 greedy decode steps, and the loss and every gradient shard
+  of ``Trainer.loss_and_grads`` against ``jax.grad``.
 
-Rank 0's counted FLOPs (``core.step_count`` on a ``fake`` (2, 2) group, a
-fifth child, as ``test_torch_dryrun.py`` builds one) of a reduced qwen3-14b
-prefill and decode step are held within 2 % of the reference's
-``hlo_analysis`` of its program compiled for a (2, 2) mesh of 4 host
-devices (a sixth child): the prefill with the second q/k/v projection of
-``attention.prefill_cache`` added, divided as the first.
+Rank 0's counted FLOPs (``core.step_count`` on a ``fake`` group, as
+``test_torch_dryrun.py`` builds one) are held within 2 % of the
+reference's ``hlo_analysis`` of the same program compiled for as many host
+devices: a reduced qwen3-14b prefill and decode step on (2, 2), and the
+prefill on (1, n) with 6 / 2 heads on 4 ranks, 28 / 4 on 8, 32 / 8 and
+40 / 8 on 16.  The prefill's named terms are added (:func:`_prefill_terms`).
 """
 import dataclasses
 import json
@@ -60,6 +67,7 @@ from repro_torch import bridge, pytree  # noqa: E402
 WORLD = 4
 TOL = 2e-3
 FLOPS_REL = 0.02
+GRAD_REL = 1e-4
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 MESHES = ("2x2", "1x4")
 CFGS = ("replicated_kv", "split_kv")
@@ -68,14 +76,28 @@ FAMILIES = ("whisper-base", "recurrentgemma-9b", "falcon-mamba-7b",
             "deepseek-moe-16b")
 LEAVES = ("mlp", "attention", "cache", "cache_int8", "decode_attention",
           "lm_head")
+# reduced configs with other head counts, by name: (arch, heads, KV heads).
+# On (1, 4): 6 heads (2, 2, 2, 0 a rank; wk / wv replicated), and 12 heads
+# reading 6 replicated KV heads in unequal groups (rank 0: 0, 0, 1).  On
+# (1, 8): qwen2-vl-7b's 28 / 4 (4 heads a rank, none on rank 7; half a KV
+# head of the split wk / wv a rank)
+HEADS = {"replicated_kv": ("qwen3-14b", 4, 2), "split_kv": ("qwen3-14b", 8, 4),
+         "heads6": ("qwen3-14b", 6, 2), "heads12_kv6": ("qwen3-14b", 12, 6),
+         "heads28_kv4": ("qwen2-vl-7b", 28, 4)}
+UNEVEN = ("heads6", "heads12_kv6")
+WIDE, WIDE_WORLD = "heads28_kv4", 8
+UNEVEN_STEPS, LOSS_CHUNK = 2, 8
+# the counted prefill cells on (1, n), by name: (heads, KV heads, n)
+COUNT_ROWS = {"6/2 on 4": (6, 2, 4), "28/4 on 8": (28, 4, 8),
+              "32/8 on 16": (32, 8, 16), "40/8 on 16": (40, 8, 16)}
 
 
 def _cfg(get, name):
     """The reduced float32 configs, by the same rules in both packages."""
-    if name in CFGS:
-        cfg = get("qwen3-14b", reduced=True).replace(dtype="float32")
-        return cfg if name == "replicated_kv" else cfg.replace(
-            num_heads=8, num_kv_heads=4)
+    if name in HEADS:
+        arch, h, kv = HEADS[name]
+        return get(arch, reduced=True).replace(
+            dtype="float32", num_heads=h, num_kv_heads=kv)
     cfg = get(name, reduced=True).replace(dtype="float32")
     if cfg.moe is not None:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
@@ -83,8 +105,10 @@ def _cfg(get, name):
     return cfg
 
 
-CHILD = r"""
-import dataclasses, json, os, sys
+# what both meshes' children share: the configs, the saved weights and
+# inputs, the greedy slice
+COMMON = r"""
+import dataclasses, json, os, sys, time
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -99,17 +123,19 @@ from repro_torch.parallel import shardctx
 
 D = os.environ["TP_DIR"]
 CFGS = ("replicated_kv", "split_kv")
-FAMILIES = json.loads(os.environ["TP_FAMILIES"])
+HEADS = json.loads(os.environ["TP_HEADS"])
+UNEVEN = ("heads6", "heads12_kv6")
+UNEVEN_STEPS, LOSS_CHUNK = 2, 8
 B, S, W, STEPS = 4, 24, 32, 4
 assert meshlib.init_distributed() == "gloo"
 rank = torch.distributed.get_rank()
 
 
 def cfg_of(name):
-    if name in CFGS:
-        cfg = get_config("qwen3-14b", reduced=True).replace(dtype="float32")
-        return cfg if name == "replicated_kv" else cfg.replace(
-            num_heads=8, num_kv_heads=4)
+    if name in HEADS:
+        arch, h, kv = HEADS[name]
+        return get_config(arch, reduced=True).replace(
+            dtype="float32", num_heads=h, num_kv_heads=kv)
     cfg = get_config(name, reduced=True).replace(dtype="float32")
     if cfg.moe is not None:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
@@ -132,12 +158,12 @@ def lst(t):
     return shardctx.local(t).tolist()
 
 
-def slice_run(params, cfg, batch, rt, rows):
+def slice_run(params, cfg, batch, rt, rows, steps=STEPS):
     # prefill then greedy decode steps, each rank feeding its own argmax
     with torch.no_grad():
         lg, st = T.prefill(params, batch, cfg, rt, window=W)
         logits, toks = [lg], [lg.argmax(-1)]
-        for _ in range(STEPS):
+        for _ in range(steps):
             lg, st = T.decode_step(params, st, toks[-1][:, None], cfg, rt)
             logits.append(lg)
             toks.append(lg.argmax(-1))
@@ -145,6 +171,16 @@ def slice_run(params, cfg, batch, rt, rows):
             "tokens": [x.tolist() for x in toks], "rows": rows}
 
 
+def finish(out, name):
+    out["jax"] = "jax" in sys.modules
+    assert not out["jax"]
+    with open(os.path.join(D, name), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+"""
+
+CHILD = COMMON + r"""
+FAMILIES = json.loads(os.environ["TP_FAMILIES"])
 out = {"jax": False}
 for mesh_name, shape in (("2x2", (2, 2)), ("1x4", (1, 4))):
     mesh = MeshPlan("base", data=shape[0], model=shape[1]).build()
@@ -204,29 +240,19 @@ for mesh_name, shape in (("2x2", (2, 2)), ("1x4", (1, 4))):
                                   window=W)
                 r["seq_shard"] = lg.tolist()
     if mesh_name != "2x2":
-        # heads the model axis does not divide compute whole; q heads that
-        # read KV heads in unequal groups raise
-        base = cfg_of("replicated_kv")
-        checks = res["uneven"] = {}
-        for label, cfg in (("whole", base.replace(num_heads=6)),
-                           ("raises", base.replace(num_heads=12,
-                                                   num_kv_heads=6))):
-            p = T.init_model(cfg, torch.Generator().manual_seed(5), "cpu")
-            want = None
-            with torch.no_grad():
-                want = T.prefill(p, {"tokens": toks}, cfg,
-                                 T.Runtime(remat=False), window=W)[0]
-            pm = shardctx.layout_tree(p, T.model_pspecs(cfg)[1], mesh)
-            try:
-                with torch.no_grad(), shardctx.use_mesh(mesh):
-                    got = T.prefill(pm, {"tokens": toks}, cfg,
-                                    T.Runtime(remat=False), window=W)[0]
-                    tp = T._tp_block_params(T._index(pm["reps"][0], 0),
-                                            cfg, "attn")[1]
-                checks[label] = {"error": None, "tp": tp,
-                                 "diff": float((got - want).abs().max())}
-            except ValueError as e:
-                checks[label] = {"error": str(e)}
+        # heads the model axis does not divide, and q heads that read
+        # replicated KV heads in unequal groups
+        for name in UNEVEN:
+            cfg = cfg_of(name)
+            whole = load(T.init_model(cfg, torch.Generator(), "meta"), name)
+            params = shardctx.layout_tree(whole, T.model_pspecs(cfg)[1],
+                                          mesh)
+            with shardctx.use_mesh(mesh):
+                res[name] = slice_run(params, cfg, {"tokens": toks},
+                                      T.Runtime(remat=False), rows,
+                                      UNEVEN_STEPS)
+                res[name]["tp"] = T._tp_block_params(
+                    T._index(params["reps"][0], 0), cfg, "attn")[1]
         continue
     for arch in FAMILIES:
         cfg = cfg_of(arch)
@@ -239,16 +265,56 @@ for mesh_name, shape in (("2x2", (2, 2)), ("1x4", (1, 4))):
             res[arch] = slice_run(params, cfg, batch,
                                   T.Runtime(remat=False), rows)
 
-out["jax"] = "jax" in sys.modules
-assert not out["jax"]
-with open(os.path.join(D, f"rank{rank}.json"), "w") as f:
-    json.dump(out, f)
-torch.distributed.destroy_process_group()
+finish(out, f"rank{rank}.json")
+"""
+
+# the (1, 8) mesh: 28 heads and 4 split KV heads on 8 ranks, prefill and
+# greedy decode steps, then the loss and gradients (the reference's are
+# written while the children run)
+WIDE_CHILD = COMMON + r"""
+from repro_torch.configs.base import ShapeConfig, TrainConfig
+from repro_torch.train import Trainer
+name = "heads28_kv4"
+mesh = MeshPlan("base", data=1, model=8).build()
+cfg = cfg_of(name)
+whole = load(T.init_model(cfg, torch.Generator(), "meta"), name)
+params = shardctx.layout_tree(whole, T.model_pspecs(cfg)[1], mesh)
+toks = arr("tokens").long()
+out = {"model": mesh.get_local_rank("model")}
+with shardctx.use_mesh(mesh):
+    out["tp"] = T._tp_block_params(T._index(params["reps"][0], 0), cfg,
+                                   "attn")[1]
+    out["slice"] = slice_run(params, cfg, {"tokens": toks},
+                             T.Runtime(remat=False), list(range(B)),
+                             UNEVEN_STEPS)
+tr = Trainer(cfg, ShapeConfig("t", S, B, "train"), TrainConfig(), mesh=mesh,
+             device="cpu", rt=T.Runtime(production=True, remat=True,
+                                        loss_chunk=LOSS_CHUNK))
+params = shardctx.layout_tree(whole, tr.state_pspecs().params, mesh)
+loss, _, grads = tr.loss_and_grads(params, {"tokens": toks})
+out["loss"] = float(loss)
+path = os.path.join(D, name + "_grad.npz")
+t0 = time.time()
+while not os.path.exists(path):
+    assert time.time() - t0 < 500, path
+    time.sleep(0.1)
+out["grads"] = {}
+with np.load(path) as z:
+    for k, g in pytree.flatten_with_paths(grads).items():
+        ref = torch.from_numpy(z[k].copy())
+        want = shardctx.shard_of(ref, mesh, g.placements) \
+            if shardctx.is_dtensor(g) else ref
+        got = shardctx.local(g)
+        assert got.shape == want.shape, (k, got.shape, want.shape)
+        out["grads"][k] = [float((got - want).abs().max()),
+                           float(ref.abs().max())]
+finish(out, f"wide{rank}.json")
 """
 
 
-# rank 0's count of a reduced config's cells (B 4, S 64) on a fake (2, 2)
-# group, on the meta device; the cell argument is [arch, [kind, ...]]
+# rank 0's count of reduced cells (B 4, S 64) on fake groups, on the meta
+# device; the argument is a list of [label, arch, kind, head overrides,
+# [data, model]]
 FAKE_CHILD = r"""
 import json, sys
 import torch
@@ -259,11 +325,10 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.fusion import MeshPlan
 from repro_torch.core.step_count import StepCounter
 from repro_torch.launch import dryrun
-arch, kinds = json.loads(sys.argv[1])
-cfg = get_config(arch, reduced=True).replace(dtype="float32")
 out = {}
-for kind in kinds:
-    mesh = dryrun._join_fake_group(MeshPlan("base", data=2, model=2))
+for label, arch, kind, heads, (data, model) in json.loads(sys.argv[1]):
+    cfg = get_config(arch, reduced=True).replace(dtype="float32", **heads)
+    mesh = dryrun._join_fake_group(MeshPlan("base", data=data, model=model))
     try:
         fn, args = dryrun.build_cell(cfg, ShapeConfig(kind, 64, 4, kind),
                                      mesh)
@@ -271,52 +336,74 @@ for kind in kinds:
             fn(*args)
     finally:
         dist.destroy_process_group()
-    out[kind] = {"flops": sc.flops, "coll": sc.coll_breakdown}
+    out[label] = {"flops": sc.flops, "coll": sc.coll_breakdown}
 assert "jax" not in sys.modules
 print(json.dumps(out))
 """
 
-# the reference's same cells, compiled for a (2, 2) mesh of 4 host devices
-# (Auto axes: jax 0.9.0's default Explicit axes trip its shardctx.hint)
+# the reference's same cells, compiled for a mesh of as many host devices,
+# every cell on one mesh shape (Auto axes: jax 0.9.0's default Explicit
+# axes trip its shardctx.hint)
 REF_CHILD = r"""
 import json, os, sys
-assert os.environ["XLA_FLAGS"] == "--xla_force_host_platform_device_count=4"
+cells = json.loads(sys.argv[1])
+data, model = cells[0][4]
+assert os.environ["XLA_FLAGS"] == \
+    f"--xla_force_host_platform_device_count={data * model}"
 import jax
-assert len(jax.devices()) == 4
+assert len(jax.devices()) == data * model
 from repro.launch import dryrun as JD    # its own XLA_FLAGS comes too late
 from repro.configs import get_config
 from repro.configs.base import ShapeConfig
 from repro.core import hlo_analysis as JH
 from repro.parallel import shardctx
-mesh = jax.make_mesh((2, 2), ("data", "model"),
+mesh = jax.make_mesh((data, model), ("data", "model"),
                      axis_types=(jax.sharding.AxisType.Auto,) * 2)
-arch, kinds = json.loads(sys.argv[1])
-cfg = get_config(arch, reduced=True).replace(dtype="float32")
 out = {}
-for kind in kinds:
+for label, arch, kind, heads, shape in cells:
+    assert list(shape) == [data, model], cells
+    cfg = get_config(arch, reduced=True).replace(dtype="float32", **heads)
     with shardctx.use_mesh(mesh):
         fn, args = JD.build_cell(cfg, ShapeConfig(kind, 64, 4, kind), mesh,
                                  "base")
         cost = JH.analyze(fn.lower(*args).compile().as_text())
-    out[kind] = {"flops": cost.flops, "unresolved": cost.unresolved_loops}
+    out[label] = {"flops": cost.flops, "unresolved": cost.unresolved_loops}
 print(json.dumps(out))
 """
+
+
+def _count_children(env, cells):
+    """Rank 0's count of ``cells`` on fake groups (one child) and the
+    reference's compiled programs (one child a mesh shape); each child
+    prints a dict by label."""
+    procs = [subprocess.Popen([sys.executable, "-c", FAKE_CHILD,
+                               json.dumps(cells)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)]
+    for shape in sorted({tuple(c[4]) for c in cells}):
+        ref_env = dict(env, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+            f"--xla_force_host_platform_device_count={shape[0] * shape[1]}"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", REF_CHILD,
+             json.dumps([c for c in cells if tuple(c[4]) == shape])],
+            env=ref_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    return procs
 
 
 def start_counts(env, arch, kinds):
     """The two counting children for reduced ``arch``'s ``kinds`` cells:
     rank 0's count on a fake (2, 2) group and the reference's program
     compiled for 4 host devices."""
-    cell = json.dumps([arch, list(kinds)])
-    fake = subprocess.Popen([sys.executable, "-c", FAKE_CHILD, cell],
-                            env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    ref_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=4",
-                   JAX_PLATFORMS="cpu")
-    compiled = subprocess.Popen([sys.executable, "-c", REF_CHILD, cell],
-                                env=ref_env, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-    return fake, compiled
+    return _count_children(env, [[k, arch, k, {}, [2, 2]] for k in kinds])
+
+
+def _row_cells():
+    """:data:`COUNT_ROWS` as counting cells: reduced qwen3-14b prefills on
+    (1, n) with the row's head counts."""
+    return [[row, "qwen3-14b", "prefill",
+             {"num_heads": h, "num_kv_heads": kv}, [1, n]]
+            for row, (h, kv, n) in COUNT_ROWS.items()]
 
 
 def _free_port() -> int:
@@ -330,15 +417,32 @@ def _save(path, tree):
                       pytree.flatten_with_paths(tree).items()})
 
 
-def _greedy(params, batch, cfg, rt):
+def _greedy(params, batch, cfg, rt, steps=STEPS):
     lg, st = JT.prefill(params, batch, cfg, rt, window=W)
     logits, toks = [np.asarray(lg)], [np.asarray(jnp.argmax(lg, -1))]
-    for _ in range(STEPS):
+    for _ in range(steps):
         lg, st = JT.decode_step(params, st, jnp.asarray(toks[-1])[:, None],
                                 cfg, rt)
         logits.append(np.asarray(lg))
         toks.append(np.asarray(jnp.argmax(lg, -1)))
     return {"logits": logits, "tokens": toks}
+
+
+def _gloo_children(script, world, env, d):
+    port = _free_port()
+    procs = []
+    for r in range(world):
+        e = dict(env, TP_DIR=d, RANK=str(r), WORLD_SIZE=str(world),
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        e.pop("LOCAL_RANK", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", script], env=e, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _last_json(log):
+    return json.loads(log.strip().splitlines()[-1])
 
 
 @pytest.fixture(scope="module")
@@ -353,29 +457,34 @@ def run(tmp_path_factory):
                     ("audio", audio)):
         np.save(os.path.join(d, name + ".npy"), a)
     ref_params = {}
-    for name in CFGS + FAMILIES:
+    for name in CFGS + UNEVEN + (WIDE,) + FAMILIES:
         cfg = _cfg(jget_config, name)
         jp, _ = JT.init_model(jax.random.PRNGKey(0), cfg)
         ref_params[name] = (cfg, jp)
         _save(os.path.join(d, name), bridge.params_from_numpy(
             jax.tree.map(np.asarray, jp), device="cpu"))
 
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
-    procs = []
-    for r in range(WORLD):
-        e = dict(env, TP_DIR=d, TP_FAMILIES=json.dumps(FAMILIES),
-                 RANK=str(r), WORLD_SIZE=str(WORLD), MASTER_ADDR="127.0.0.1",
-                 MASTER_PORT=str(port))
-        e.pop("LOCAL_RANK", None)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", CHILD], env=e, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    fake, compiled = start_counts(env, "qwen3-14b", ("prefill", "decode"))
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1",
+               TP_HEADS=json.dumps(HEADS), TP_FAMILIES=json.dumps(FAMILIES))
+    procs = _gloo_children(CHILD, WORLD, env, d)
+    wide = _gloo_children(WIDE_CHILD, WIDE_WORLD, env, d)
+    pair = start_counts(env, "qwen3-14b", ("prefill", "decode"))
+    rows = _count_children(env, _row_cells())
 
     # the oracles, while the children run
     oracle = {}
     rt = JT.Runtime(production=False, remat=False)
+    cfg, jp = ref_params[WIDE]
+    wide_batch = {"tokens": jnp.asarray(tokens)}
+    trt = JT.Runtime(production=False, remat=True, loss_chunk=LOSS_CHUNK)
+    loss, grads = jax.value_and_grad(
+        lambda p: JT.loss_fn(p, wide_batch, cfg, trt)[0])(jp)
+    tmp = os.path.join(d, WIDE + "_grad.tmp.npz")
+    _save(tmp, bridge.params_from_numpy(jax.tree.map(np.asarray, grads),
+                                        device="cpu"))
+    os.replace(tmp, os.path.join(d, WIDE + "_grad.npz"))
+    oracle[WIDE] = dict(_greedy(jp, wide_batch, cfg, rt, UNEVEN_STEPS),
+                        loss=float(loss))
     xs, xn = jnp.asarray(x), jnp.asarray(x_new)
     positions = jnp.broadcast_to(jnp.arange(S)[None], (B, S))
     for name in CFGS:
@@ -400,6 +509,10 @@ def run(tmp_path_factory):
             o[f"slice_q{int(quant)}"] = _greedy(
                 jp, {"tokens": jnp.asarray(tokens)}, cfg,
                 rt._replace(kv_quant=quant))
+    for name in UNEVEN:
+        cfg, jp = ref_params[name]
+        oracle[name] = _greedy(jp, {"tokens": jnp.asarray(tokens)}, cfg, rt,
+                               UNEVEN_STEPS)
     for arch in FAMILIES:
         cfg, jp = ref_params[arch]
         batch = {"tokens": jnp.asarray(tokens)}
@@ -407,36 +520,95 @@ def run(tmp_path_factory):
             batch["audio_embeds"] = jnp.asarray(audio)
         oracle[arch] = _greedy(jp, batch, cfg, rt)
 
+    children = procs + wide + pair + rows
     logs = []
-    for p in procs + [fake, compiled]:
+    for p in children:
         try:
             logs.append(p.communicate(timeout=600)[0])
         except subprocess.TimeoutExpired:
-            for q in procs + [fake, compiled]:
+            for q in children:
                 q.kill()
             raise
-    for r, p in enumerate(procs + [fake, compiled]):
+    for r, p in enumerate(children):
         assert p.returncode == 0, f"child {r}:\n{logs[r][-6000:]}"
-    oracle["fake_count"] = json.loads(logs[WORLD].strip().splitlines()[-1])
-    oracle["compiled"] = json.loads(logs[WORLD + 1].strip().splitlines()[-1])
-    oracle["reprojection"] = _reprojection_flops(ref_params["replicated_kv"]
-                                                 [0])
+    n0 = len(procs) + len(wide)
+    oracle["fake_count"], oracle["compiled"] = (
+        _last_json(x) for x in logs[n0:n0 + 2])
+    row_logs = [_last_json(x) for x in logs[n0 + 2:]]
+    oracle["rows"] = {"fake": row_logs[0], "compiled": {
+        k: v for c in row_logs[1:] for k, v in c.items()}}
     outs = []
     for r in range(WORLD):
         with open(os.path.join(d, f"rank{r}.json")) as f:
             outs.append(json.load(f))
+    oracle["wide"] = []
+    for r in range(WIDE_WORLD):
+        with open(os.path.join(d, f"wide{r}.json")) as f:
+            oracle["wide"].append(json.load(f))
     return oracle, outs
 
 
+def _kv_split(cfg, model) -> bool:
+    """Whether the resolved spec splits ``wk`` / ``wv`` over 'model': a
+    multiple of 4 KV heads (``attention_pspecs``) whose columns the axis
+    divides."""
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    return cfg.num_kv_heads % 4 == 0 and kv % model == 0
+
+
 def _reprojection_flops(cfg, Bp=4, Sp=64, data=2, model=2) -> float:
-    """Rank 0's FLOPs of the second q/k/v projection ``prefill_cache`` makes
-    in each attention layer of the (2, 2) prefill cell, divided as the
-    first: the rank's batch rows and q heads, and every KV head (reduced
-    qwen3-14b's 2 KV heads: ``wk`` / ``wv`` replicated)."""
+    """Rank 0's FLOPs of the second projection ``prefill_cache`` makes in
+    each attention layer of a prefill cell, which XLA's CSE folds: k and v
+    on the rank's batch rows, of the rank's columns where ``wk`` / ``wv``
+    are split (then all-gathered) or every KV head where they are
+    replicated; and q on the rank's heads where the model axis divides
+    them (elsewhere the port projects k and v alone)."""
     hd = cfg.resolved_head_dim
-    width = cfg.num_heads * hd // model + 2 * cfg.num_kv_heads * hd
+    width = 2 * cfg.num_kv_heads * hd // (model if _kv_split(cfg, model)
+                                          else 1)
+    if cfg.num_heads % model == 0:
+        width += cfg.num_heads * hd // model
     n_attn = sum(k == "attn" for k in cfg.layer_kinds)
     return n_attn * 2.0 * (Bp // data) * Sp * cfg.d_model * width
+
+
+def _ring_flops(cfg, Bp=4, Sp=64, data=2, model=2) -> float:
+    """Rank 0's FLOPs of XLA's projection, for the ring it lays out over
+    'model', of every KV head on the rank's S / n positions: v alone where
+    ``wk`` / ``wv`` are split (its ring k is the attention's, gathered), k
+    and v where they are replicated (the attention projected only the KV
+    heads the rank reads)."""
+    hd = cfg.resolved_head_dim
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds)
+    per = 1 if _kv_split(cfg, model) else 2
+    return n_attn * per * 2.0 * (Bp // data) * (Sp // model) * \
+        cfg.d_model * cfg.num_kv_heads * hd
+
+
+def _unread_kv_flops(cfg, Bp=4, Sp=64, data=2, model=2) -> float:
+    """Rank 0's FLOPs of the attention's k / v projection of the KV heads
+    its heads do not read, where ``wk`` / ``wv`` are replicated: the port
+    projects every KV head and takes those its ``ceil(H / n)`` heads read
+    (``h // (H / KV)``), XLA projects only those."""
+    if _kv_split(cfg, model):
+        return 0.0
+    c = -(-cfg.num_heads // model)
+    read = -(-c // (cfg.num_heads // cfg.num_kv_heads))
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds)
+    return n_attn * 2 * 2.0 * (Bp // data) * Sp * cfg.d_model * (
+        cfg.num_kv_heads - read) * cfg.resolved_head_dim
+
+
+def _prefill_terms(cfg, data, model) -> float:
+    """What rank 0's count of a prefill cell adds to the compiled
+    reference's: the port's second projection and its projection of the
+    unread replicated KV heads, less XLA's ring projection.  Nothing else
+    differs: q, k, v and wo at the spec's share (where the model axis does
+    not divide the heads, the port gathers the projections as XLA does),
+    the attention on the rank's ceil(H / n) heads."""
+    kw = dict(data=data, model=model)
+    return (_reprojection_flops(cfg, **kw) + _unread_kv_flops(cfg, **kw)
+            - _ring_flops(cfg, **kw))
 
 
 def _rows(o, mesh):
@@ -535,18 +707,49 @@ def test_other_families_slice(run, arch):
             assert _err(got["logits"][i], want["logits"][i][rows]) < TOL, i
 
 
-def test_uneven_heads_compute_whole_or_raise(run):
-    _, outs = run
+@pytest.mark.parametrize("cfg", UNEVEN)
+def test_uneven_heads_compute_whole_or_raise(run, cfg):
+    """Heads the model axis does not divide (6 on 4 model ranks: 2, 2, 2,
+    0) and q heads that read replicated KV heads in unequal groups (12 / 6
+    heads: rank 0's heads 0-2 read KV heads 0, 0, 1) compute on 'model'
+    shards, neither whole nor raising: prefill and 2 greedy decode steps
+    against the reference, logits within 2e-3, tokens equal."""
+    oracle, outs = run
+    want = oracle[cfg]
     for o in outs:
-        u = o["1x4"]["uneven"]
-        # 6 heads on 4 model ranks: the attention whole, the MLP on shards
-        assert u["whole"]["error"] is None
-        assert u["whole"]["tp"] == {"mixer": False, "ffn": True,
-                                    "cross": False}
-        assert u["whole"]["diff"] < TOL
-        # 12 heads, 6 KV heads (replicated): rank 0's q heads 0-2 read KV
-        # heads 0, 0, 1
-        assert "in equal groups" in u["raises"]["error"]
+        got = o["1x4"][cfg]
+        assert got["tp"] == {"mixer": True, "ffn": True, "cross": False}
+        rows = got["rows"]
+        for i in range(UNEVEN_STEPS + 1):
+            assert got["tokens"][i] == want["tokens"][i][rows].tolist(), i
+            assert _err(got["logits"][i], want["logits"][i][rows]) < TOL, i
+
+
+@pytest.mark.parametrize("part", ["slice", "loss", "gradients"])
+def test_split_kv_heads_undivided_on_eight_ranks(run, part):
+    """28 heads, 4 split KV heads on a (1, 8) mesh (4 heads a rank, none
+    on rank 7; half a KV head of wk / wv a rank): prefill and 2 greedy
+    decode steps (logits within 2e-3, tokens equal), the loss within 1e-5
+    of the reference's, each rank's gradient shard within 1e-4 of its
+    leaf's largest."""
+    oracle, _ = run
+    want = oracle[WIDE]
+    assert sorted(o["model"] for o in oracle["wide"]) == \
+        list(range(WIDE_WORLD))
+    for o in oracle["wide"]:
+        assert o["jax"] is False
+        assert o["tp"] == {"mixer": True, "ffn": True, "cross": False}
+        if part == "slice":
+            for i in range(UNEVEN_STEPS + 1):
+                assert o["slice"]["tokens"][i] == want["tokens"][i].tolist()
+                assert _err(o["slice"]["logits"][i], want["logits"][i]) \
+                    < TOL, i
+        elif part == "loss":
+            assert abs(o["loss"] - want["loss"]) < 1e-5 * abs(want["loss"])
+        else:
+            bad = {k: (err, top) for k, (err, top) in o["grads"].items()
+                   if not err <= GRAD_REL * top}
+            assert o["grads"] and not bad, (o["model"], bad)
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
@@ -556,7 +759,23 @@ def test_counted_flops_match_compiled_program(run, kind):
     assert ref["unresolved"] == 0 and ref["flops"] > 0
     want = ref["flops"]
     if kind == "prefill":
-        want += oracle["reprojection"]
+        want += _prefill_terms(_cfg(jget_config, "replicated_kv"), 2, 2)
     got = oracle["fake_count"][kind]["flops"]
     assert got == pytest.approx(want, rel=FLOPS_REL), (kind, got, want)
     assert oracle["fake_count"][kind]["coll"]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("row", COUNT_ROWS)
+def test_uneven_heads_prefill_flops_match_compiled_program(run, row):
+    """Rank 0's prefill on (1, n) where the model axis does not divide the
+    heads or the split KV heads, against the program compiled for n host
+    devices plus the named terms (:func:`_prefill_terms`)."""
+    oracle, _ = run
+    h, kv, n = COUNT_ROWS[row]
+    ref = oracle["rows"]["compiled"][row]
+    assert ref["unresolved"] == 0 and ref["flops"] > 0
+    cfg = jget_config("qwen3-14b", reduced=True).replace(
+        dtype="float32", num_heads=h, num_kv_heads=kv)
+    want = ref["flops"] + _prefill_terms(cfg, 1, n)
+    got = oracle["rows"]["fake"][row]["flops"]
+    assert got == pytest.approx(want, rel=FLOPS_REL), (row, got, want)

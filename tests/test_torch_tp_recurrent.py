@@ -25,10 +25,11 @@ within 2e-3 (as ``tests/test_multidevice.py``):
 * the slice: ``prefill`` and 3 greedy ``decode_step``s (logits, tokens
   equal, and every decode-state shard after the prefill and after the last
   step against the reference's state);
-* where the model axis does not divide: whisper with 6 heads (4 model
-  ranks), recurrentgemma with an RG-LRU width of 130 (4 model ranks) and
-  whisper on 25 encoder frames (neither mesh) compute those layers (or
-  that cache) whole and give the same values.
+* where the model axis does not divide: recurrentgemma with an RG-LRU
+  width of 130 (4 model ranks) and whisper on 25 encoder frames (neither
+  mesh) compute that layer (or that cache) whole and give the same values;
+  whisper with 6 heads (4 model ranks) computes its self- and
+  cross-attention on shards, 2, 2, 2 and 0 heads a rank.
 
 Rank 0's counted FLOPs (``core.step_count`` on a ``fake`` (2, 2) group) of
 the reduced falcon-mamba-7b and recurrentgemma-9b prefill and decode cells
@@ -57,7 +58,7 @@ from repro.models import rglru as JR  # noqa: E402
 from repro.models import ssm as JS  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from test_torch_tp import (_free_port, _reprojection_flops,  # noqa: E402
+from test_torch_tp import (_free_port, _prefill_terms,  # noqa: E402
                            _save, start_counts)
 
 WORLD = 4
@@ -474,9 +475,9 @@ def _expected_tp(case, mesh):
         # 130 channels on 4 model ranks: the RG-LRU mixer whole
         rg = dict(on, mixer=not (four and case == "rglru-width-130"))
         return {"rglru": rg, "attn": on}
-    # whisper: 6 heads on 4 model ranks, self- and cross-attention whole
-    split = not (four and case == "whisper-6-heads")
-    return {"attn": dict(on, mixer=split, cross=split)}
+    # whisper, 6 heads on 4 model ranks too: self- and cross-attention on
+    # shards (2, 2, 2, 0 heads a rank)
+    return {"attn": dict(on, cross=True)}
 
 
 @pytest.mark.parametrize("case", list(SLICES))
@@ -485,7 +486,9 @@ def test_slice_tokens_logits_and_states(run, mesh, case):
     """prefill + 3 greedy steps: tokens equal, logits within 2e-3, and each
     rank's decode-state shards (after the prefill and after the last step)
     against the reference state's slices.  Where the model axis does not
-    divide, the layer computes whole (or the cross cache stays whole)."""
+    divide a mixer's channels, the layer computes whole (where it does not
+    divide the encoder frames, the cross cache stays whole); attention is
+    on shards whatever its head counts."""
     oracle, outs = run
     want = oracle[case]
     cfg = _cfg(jget_config, SLICES[case][0])
@@ -514,26 +517,22 @@ def _xla_terms(cfg, kind, Bp=4, Sp=64, data=2, model=2) -> float:
     """What the port's count of a reduced (2, 2) cell adds to the compiled
     reference's (negative where XLA computes more), term by term:
 
-    * the port's second q/k/v projection in ``prefill_cache``, which XLA's
-      CSE folds (``_reprojection_flops``);
-    * XLA's k / v projection, for the ring it lays out over 'model', of the
-      rank's S / n positions, every (replicated) KV head, again;
+    * the port's second projection in ``prefill_cache``, which XLA's CSE
+      folds, less XLA's k / v projection, for the ring it lays out over
+      'model', of the rank's S / n positions (``_prefill_terms``);
     * XLA's tied LM head on the prefill's last position: all Bp batch rows
       against V / n columns of the gathered table, where the port's
       row-parallel head contracts its D / n on its Bp / data rows.
     """
     if kind != "prefill":
         return 0.0
-    hd, d = cfg.resolved_head_dim, cfg.d_model
-    n_attn = sum(k == "attn" for k in cfg.layer_kinds)
-    ring = n_attn * 2.0 * (Bp // data) * (Sp // model) * d * (
-        2 * cfg.num_kv_heads * hd)
+    d = cfg.d_model
     head = 0.0
     if cfg.tie_embeddings:
         V = cfg.vocab_size
         head = 2.0 * Bp * d * (V // model) - 2.0 * (Bp // data) * (
             d // model) * V
-    return _reprojection_flops(cfg, Bp, Sp, data, model) - ring - head
+    return _prefill_terms(cfg, data, model) - head
 
 
 @pytest.mark.parametrize("kind", ["prefill", "decode"])

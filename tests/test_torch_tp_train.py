@@ -31,6 +31,9 @@ tokens, computed in this process meanwhile:
   ``tests/test_multidevice.py``), each gradient within 1e-4 of its leaf's
   largest magnitude (the single-device training tolerance of
   ``tests/test_torch_train.py``);
+  On (1, 4) also reduced qwen3-14b with 6 heads (2, 2, 2, 0 a rank) and
+  with 12 heads reading 6 replicated KV heads in unequal groups, its loss
+  within 1e-5 too;
 * ``logits_fn`` on (2, 2), both qwen3 configs: the rank's rows, within 2e-3;
 * the vocab-parallel NLL of one chunk (``transformer._vocab_parallel_nll``
   on the rank's V / n columns of the same logits) against the reference's
@@ -73,9 +76,15 @@ FLOPS_REL = 0.05
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 B, S, CHUNK = 4, 32, 8              # 31 targets in 4 chunks (one padded)
 QWEN = ("replicated_kv", "split_kv")
+# reduced qwen3-14b with heads the model axis does not divide (6 on 4
+# ranks), and q heads that read replicated KV heads in unequal groups (12 /
+# 6 heads on 4 ranks), on (1, 4)
+UNEVEN = {"heads6": (6, 2), "heads12_kv6": (12, 6)}
+LOSS_REL = 1e-5
 FAMILIES = ("deepseek-moe-16b", "falcon-mamba-7b", "whisper-base",
             "recurrentgemma-9b")
-LEGS = [("2x2", c) for c in QWEN + FAMILIES] + [("1x4", c) for c in QWEN]
+LEGS = [("2x2", c) for c in QWEN + FAMILIES] + [
+    ("1x4", c) for c in QWEN + tuple(UNEVEN)]
 # the vocab-parallel NLL's logits: (B, c, V), V split 2 and 4 ways
 NLL_SHAPE = (3, 5, 64)
 # whisper-base's V (51,865) is odd; the reduced 512 would divide
@@ -84,6 +93,10 @@ WHISPER_V = 515
 
 def _cfg(get, name):
     """The reduced float32 configs, by the same rules in both packages."""
+    if name in UNEVEN:
+        h, kv = UNEVEN[name]
+        return get("qwen3-14b", reduced=True).replace(
+            dtype="float32", num_heads=h, num_kv_heads=kv)
     if name in QWEN:
         cfg = get("qwen3-14b", reduced=True).replace(dtype="float32")
         return cfg if name == "replicated_kv" else cfg.replace(
@@ -113,6 +126,7 @@ from repro_torch.train import Trainer
 
 D = os.environ["TP_DIR"]
 QWEN = ("replicated_kv", "split_kv")
+UNEVEN = json.loads(os.environ["TP_UNEVEN"])
 LEGS = json.loads(os.environ["TP_LEGS"])
 B, S, CHUNK = 4, 32, 8
 WHISPER_V = 515
@@ -121,6 +135,10 @@ rank = torch.distributed.get_rank()
 
 
 def cfg_of(name):
+    if name in UNEVEN:
+        h, kv = UNEVEN[name]
+        return get_config("qwen3-14b", reduced=True).replace(
+            dtype="float32", num_heads=h, num_kv_heads=kv)
     if name in QWEN:
         cfg = get_config("qwen3-14b", reduced=True).replace(dtype="float32")
         return cfg if name == "replicated_kv" else cfg.replace(
@@ -257,7 +275,7 @@ def run(tmp_path_factory):
     for case, tg in nll_cases.items():
         np.save(os.path.join(d, f"nll_targets_{case}.npy"), tg)
     ref = {}
-    for name in QWEN + FAMILIES:
+    for name in QWEN + tuple(UNEVEN) + FAMILIES:
         cfg = _cfg(jget_config, name)
         jp, _ = JT.init_model(jax.random.PRNGKey(0), cfg)
         ref[name] = (cfg, jp)
@@ -268,7 +286,8 @@ def run(tmp_path_factory):
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     procs = []
     for r in range(WORLD):
-        e = dict(env, TP_DIR=d, TP_LEGS=json.dumps(LEGS), RANK=str(r),
+        e = dict(env, TP_DIR=d, TP_LEGS=json.dumps(LEGS),
+                 TP_UNEVEN=json.dumps(UNEVEN), RANK=str(r),
                  WORLD_SIZE=str(WORLD), MASTER_ADDR="127.0.0.1",
                  MASTER_PORT=str(port))
         e.pop("LOCAL_RANK", None)
@@ -282,7 +301,7 @@ def run(tmp_path_factory):
     # the children, who wait for each file as they reach its leg
     oracle = {}
     rt = JT.Runtime(production=False, remat=True, loss_chunk=CHUNK)
-    for name in QWEN + FAMILIES:
+    for name in QWEN + tuple(UNEVEN) + FAMILIES:
         cfg, jp = ref[name]
         batch = {"tokens": jnp.asarray(tokens)}
         if cfg.encoder_layers:
@@ -349,6 +368,8 @@ def test_children_never_import_jax(run):
 ON_SHARDS = {"mixer": True, "ffn": True, "cross": False}
 TP = {"replicated_kv": {"attn": ON_SHARDS},
       "split_kv": {"attn": ON_SHARDS},
+      "heads6": {"attn": ON_SHARDS},
+      "heads12_kv6": {"attn": ON_SHARDS},
       "deepseek-moe-16b": {"attn": ON_SHARDS},
       "falcon-mamba-7b": {"ssm": {"mixer": True, "ffn": False,
                                   "cross": False}},
@@ -366,6 +387,10 @@ def test_loss_matches_reference(run, mesh, cfg):
         assert r["tp"] == TP[cfg], r["tp"]
         assert r["head_split"] == HEAD_SPLIT[cfg], cfg
         assert abs(r["loss"] - want) < LOSS_TOL, (mesh, cfg, r["loss"], want)
+        if cfg in UNEVEN:
+            # the single-device training tolerance: no data shards here
+            assert abs(r["loss"] - want) < LOSS_REL * abs(want), \
+                (mesh, cfg, r["loss"], want)
 
 
 @pytest.mark.parametrize("mesh,cfg", LEGS)
