@@ -66,6 +66,7 @@ from repro_torch.fleet.vec import VecGroup, VecState
 from repro_torch.models import transformer as T
 from repro_torch.obs.events import OBS_MODES, EventLog
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.spans import SPANS
 from repro_torch.serve.engine import (IDLE, TICKED, ReconfigurableGroup,
                                       Request, make_decode_fn)
 
@@ -414,54 +415,64 @@ class FleetEngine:
             self._vec.decode_tick(self.wall, self.groups)
         return statuses
 
+    def _rebalance(self) -> None:
+        """The fleet controller's turn: rebalance, then execute its plans
+        between ticks (steals re-queue, live migrations splice KV rows
+        before anyone decodes)."""
+        with SPANS.span("engine.rebalance", tick=self.wall) as sp:
+            if self._vec is not None \
+                    and self.wall % self.controller.every == 0:
+                # rebalance ticks read Request.generated lengths
+                # (KV-transfer pricing, long-fraction mix); make the
+                # lazily-materialized lists truthful first
+                self._vec.sync_generated()
+            self.controller.rebalance(self.wall, self.groups)
+            plans = self.controller.take_plans()
+            if plans:
+                self.planner.execute(plans, self.groups, now=self.wall)
+            if SPANS.on:
+                sp.set(plans=len(plans))
+
     def run(self, dynamic: bool = True,
             max_ticks: int = 1_000_000) -> Dict:
         """Drive the fleet until the trace is fully drained (or max_ticks)."""
         t0 = time.perf_counter()
         while self.wall < max_ticks:
-            if self.obs.enabled:
-                # one clock for every emitter that has no tick in scope
-                # (controller.observe, policy refits, live migrations)
-                self.obs.set_tick(self.wall)
-            self._deliver()
-            if self.controller is not None and dynamic \
-                    and self.fleet.mode == "dynamic":
-                if self._vec is not None \
-                        and self.wall % self.controller.every == 0:
-                    # rebalance ticks read Request.generated lengths
-                    # (KV-transfer pricing, long-fraction mix); make the
-                    # lazily-materialized lists truthful first
-                    self._vec.sync_generated()
-                self.controller.rebalance(self.wall, self.groups)
-                plans = self.controller.take_plans()
-                if plans:
-                    # execute between ticks: steals re-queue, live
-                    # migrations splice KV rows before anyone decodes
-                    self.planner.execute(plans, self.groups, now=self.wall)
-            statuses = self._step_groups(dynamic)
-            ticked = sum(s == TICKED for s in statuses)
-            if all(s == IDLE for s in statuses):
-                nxt_evt = self._next_event()
-                if nxt_evt is None:
-                    # terminal probe: the trace is drained, not an idle tick
-                    break
-                # fast-forward the idle gap to the next event, never
-                # past the caller's tick bound
-                nxt = min(max(self.wall + 1, nxt_evt), max_ticks)
-                self.telemetry.on_tick(self.wall, self.groups, 0,
-                                       all_idle=True)
-                self.telemetry.on_idle_gap(nxt - self.wall - 1,
-                                           len(self.groups))
-                self.wall = nxt
-                continue
-            self.telemetry.on_tick(self.wall, self.groups, ticked)
-            if self._metrics is not None:
-                # vec: one fleet-wide sum instead of a slice per group
-                live = int(self._vec.part_live_n.sum()) \
-                    if self._vec is not None else None
-                self._metrics.sample_fleet(self.wall, self.groups,
-                                           planner=self.planner, live=live)
-            self.wall += 1
+            with SPANS.span("engine.tick", tick=self.wall):
+                if self.obs.enabled:
+                    # one clock for every emitter that has no tick in scope
+                    # (controller.observe, policy refits, live migrations)
+                    self.obs.set_tick(self.wall)
+                self._deliver()
+                if self.controller is not None and dynamic \
+                        and self.fleet.mode == "dynamic":
+                    self._rebalance()
+                statuses = self._step_groups(dynamic)
+                ticked = sum(s == TICKED for s in statuses)
+                if all(s == IDLE for s in statuses):
+                    nxt_evt = self._next_event()
+                    if nxt_evt is None:
+                        # terminal probe: the trace is drained, not an
+                        # idle tick
+                        break
+                    # fast-forward the idle gap to the next event, never
+                    # past the caller's tick bound
+                    nxt = min(max(self.wall + 1, nxt_evt), max_ticks)
+                    self.telemetry.on_tick(self.wall, self.groups, 0,
+                                           all_idle=True)
+                    self.telemetry.on_idle_gap(nxt - self.wall - 1,
+                                               len(self.groups))
+                    self.wall = nxt
+                    continue
+                self.telemetry.on_tick(self.wall, self.groups, ticked)
+                if self._metrics is not None:
+                    # vec: one fleet-wide sum instead of a slice per group
+                    live = int(self._vec.part_live_n.sum()) \
+                        if self._vec is not None else None
+                    self._metrics.sample_fleet(self.wall, self.groups,
+                                               planner=self.planner,
+                                               live=live)
+                self.wall += 1
         if self._vec is not None:
             self._vec.sync_generated()
         for g in self.groups:

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.obs.spans import SPANS
 from repro_torch.parallel import collectives, shardctx
 from repro_torch.parallel.shardctx import P
 
@@ -282,6 +283,14 @@ def moe_forward(params, x: torch.Tensor, cfg: ModelConfig,
     axes, as the reference's global ones are).  ``tp``: the shared experts
     and dense residual come as this rank's 'model' shards
     (``transformer._tp_block_params``)."""
+    if SPANS.on:
+        with SPANS.span("model.moe", tokens=x.numel() // x.shape[-1]):
+            return _moe_forward(params, x, cfg, production, tp)
+    return _moe_forward(params, x, cfg, production, tp)
+
+
+def _moe_forward(params, x: torch.Tensor, cfg: ModelConfig,
+                 production: bool, tp: bool) -> Tuple[torch.Tensor, MoEAux]:
     if shardctx.current_mesh() is None:
         return moe_dense(params, x, cfg)
     if production:

@@ -55,6 +55,7 @@ from repro_torch.control.policies import ReconfigPolicy
 from repro_torch.core.predictor import LogisticModel
 from repro_torch.models import transformer as T
 from repro_torch.obs.events import NULL_LOG, EventLog
+from repro_torch.obs.spans import SPANS
 from repro_torch.serve import state_utils as su
 
 
@@ -134,6 +135,16 @@ def make_decode_fn(model_cfg: ModelConfig, rt: T.Runtime) -> Callable:
     """One ``decode_step`` closure, shared by every caller that ticks a
     group.  PyTorch runs it eagerly; there is nothing to jit."""
     return lambda p, s, t: T.decode_step(p, s, t, model_cfg, rt)
+
+
+def _recut_bytes(before: List, after: List) -> int:
+    """Bytes of decode state a re-cut wrote: the merge's output (the live
+    parts' states, where there were several) and the re-slice's (the new
+    parts' states, where there are several).  The vec engine's parts hold
+    no state and count 0."""
+    after = [p for p in after if p is not None]
+    return sum(su.nbytes([getattr(p, "state", None) for p in parts])
+               for parts in (before, after) if len(parts) > 1)
 
 
 # group step outcomes
@@ -311,15 +322,17 @@ class ReconfigurableGroup:
         for plen, reqs in sorted(by_len.items()):
             toks = torch.tensor([r.prompt for r in reqs], dtype=torch.long,
                                 device=self.device)
-            logits, st = T.prefill(self.params, {"tokens": toks}, self.cfg,
-                                   self.rt, window=self.window)
-            nxt = torch.argmax(logits, dim=-1)     # ties: first index
-            for r, t in zip(reqs, nxt.tolist()):
-                r.generated.append(int(t))
-                if r.done:
-                    r.finish = now
-            self.stats.prefill_tokens += plen * len(reqs)
-            self.stats.useful_tokens += len(reqs)
+            with SPANS.span("group.prefill", batch=len(reqs), seq=plen):
+                logits, st = T.prefill(self.params, {"tokens": toks},
+                                       self.cfg, self.rt, window=self.window)
+            with SPANS.span("group.readback", gid=self.gid, part=part_idx):
+                nxt = torch.argmax(logits, dim=-1)     # ties: first index
+                for r, t in zip(reqs, nxt.tolist()):
+                    r.generated.append(int(t))
+                    if r.done:
+                        r.finish = now
+                self.stats.prefill_tokens += plen * len(reqs)
+                self.stats.useful_tokens += len(reqs)
             states.append(st)
             lasts.append(nxt[:, None])
             ordered.extend(reqs)
@@ -333,15 +346,18 @@ class ReconfigurableGroup:
         live = [i for i, r in enumerate(g.requests) if not r.done]
         if not live:
             return
-        logits, new_state = self._decode(self.params, g.state, g.last)
-        nxt = torch.argmax(logits, dim=-1)         # ties: first index
-        arr = nxt.tolist()
-        for i, r in enumerate(g.requests):
-            if not r.done:
-                r.generated.append(int(arr[i]))
-                self.stats.useful_tokens += 1
-                if r.done:
-                    r.finish = now
+        with SPANS.span("group.decode", gid=self.gid, part=part_idx,
+                        batch=len(g.requests)):
+            logits, new_state = self._decode(self.params, g.state, g.last)
+        with SPANS.span("group.readback", gid=self.gid, part=part_idx):
+            nxt = torch.argmax(logits, dim=-1)         # ties: first index
+            arr = nxt.tolist()
+            for i, r in enumerate(g.requests):
+                if not r.done:
+                    r.generated.append(int(arr[i]))
+                    self.stats.useful_tokens += 1
+                    if r.done:
+                        r.finish = now
         g.state = new_state
         g.last = nxt[:, None]
         self.stats.slot_steps += slots
@@ -376,6 +392,18 @@ class ReconfigurableGroup:
         reconfiguration never changes any request's results — only which
         rows decode in lockstep and how many slots each cohort owns.
         """
+        on = SPANS.on
+        if on:
+            before = [p for p in self._parts if p is not None]
+            cut = {"from": list(self.topology),
+                   "to": list(self.space.as_topology(target))}
+        with SPANS.span("group.reconfigure", gid=self.gid) as sp:
+            self._recut(target)
+            if on:
+                sp.set(bytes=_recut_bytes(before, self._parts), **cut)
+
+    def _recut(self, target: Topology) -> None:
+        """``_reconfigure``'s work: revoke leases, merge, re-slice."""
         # leases are defined against the *current* composition; a new cut
         # invalidates every book entry, so the planner force-revokes both
         # directions (ours and our counterparties') before parts move
@@ -605,8 +633,11 @@ class ReconfigurableGroup:
                 continue
             if self._part_done(p):
                 self._retire(p)
-                wave = self._prefill_wave(self.effective_slots(i), now,
-                                          part_idx=i)
+                with SPANS.span("group.admit", gid=self.gid, part=i) as sp:
+                    wave = self._prefill_wave(self.effective_slots(i), now,
+                                              part_idx=i)
+                    if SPANS.on:
+                        sp.set(n=0 if wave is None else len(wave.requests))
                 self._parts[i] = wave
                 if wave is not None and self.obs.enabled:
                     self.obs.emit("admission", gid=self.gid, part=i,
@@ -616,13 +647,14 @@ class ReconfigurableGroup:
         if not live:
             return IDLE
         if self.mode == "dynamic" and dynamic and self.acfg.enabled:
-            rem = np.concatenate([p.remaining for p in live])
-            fv = FeatureVector.from_group(rem, len(self.queue),
-                                          self._arrivals.rate(now),
-                                          self.capacity)
-            # a group can only be partitioned as far as it has requests
-            cap = min(self.space.max_ways, rem.size)
-            self.controller.observe(fv, max_ways_now=cap)
+            with SPANS.span("group.control", gid=self.gid):
+                rem = np.concatenate([p.remaining for p in live])
+                fv = FeatureVector.from_group(rem, len(self.queue),
+                                              self._arrivals.rate(now),
+                                              self.capacity)
+                # a group can only be partitioned as far as it has requests
+                cap = min(self.space.max_ways, rem.size)
+                self.controller.observe(fv, max_ways_now=cap)
             desired = self.controller.state.topology
             if desired != self.topology:
                 prev = self.topology

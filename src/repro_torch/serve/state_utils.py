@@ -65,5 +65,11 @@ def split(state: DecodeState, take_ids: Sequence[int],
     return take(state, take_ids), take(state, keep_ids)
 
 
+def nbytes(tree) -> int:
+    """Bytes of the tensors in ``tree`` (a decode state, or several)."""
+    return sum(x.nbytes for x in pytree.leaves(tree)
+               if isinstance(x, torch.Tensor))
+
+
 def batch_size(state: DecodeState) -> int:
     return int(state.pos.shape[0])
