@@ -16,21 +16,25 @@ the log is off but a ``torch.profiler`` records, a span is that
 shows where the host was (the per-layer ``model.moe`` excepted).  The
 names start with ``engine.``, ``group.`` or ``model.``:
 
-================== ========================================================
-span                around
-================== ========================================================
-engine.tick         one pass of ``FleetEngine.run``'s loop
-engine.rebalance    the fleet controller's rebalance and its plans' execution
-group.admit         one part's prefill wave (admission, prefill calls, merge)
-group.prefill       one ``transformer.prefill`` call inside a wave
-group.control       the group controller's features and ``observe``
-group.reconfigure   a re-cut (``bytes``: decode state the merge and the
-                    re-slice wrote)
-group.decode        one part's decode call
-group.readback      ``argmax``, ``tolist`` and the token bookkeeping after
-                    a decode or a prefill call
-model.moe           one ``moe_forward`` call
-================== ========================================================
+==================== ======================================================
+span                 around
+==================== ======================================================
+engine.tick          one pass of ``FleetEngine.run``'s loop
+engine.rebalance     the fleet controller's rebalance and its plans' execution
+group.admit          one part's prefill wave (admission, prefill calls, merge)
+group.prefill        one ``transformer.prefill`` call inside a wave
+group.control        the group controller's features and ``observe``
+group.reconfigure    a re-cut (``bytes``: decode state the merge and the
+                     re-slice wrote)
+group.decode         one part's decode call (``eager``: 1 where a CUDA
+                     decode ran eagerly for want of memory for its graph)
+group.readback       ``argmax``, ``tolist`` and the token bookkeeping after
+                     a decode or a prefill call
+model.moe            one ``moe_forward`` call
+model.decode_capture the capture of a decode state's CUDA graph
+                     (``batch``, ``ms``: its host milliseconds)
+model.decode_replay  one replay of a decode state's CUDA graph (``batch``)
+==================== ======================================================
 
 The log is a bounded buffer of finished spans: past ``capacity`` the
 oldest go and ``dropped`` counts them, as ``EventLog``'s ring does.  It is
@@ -95,8 +99,8 @@ class _Span:
         log = self.log
         self.id = log._next_id
         log._next_id += 1
-        self.parent = log._open[-1] if log._open else None
-        log._open.append(self.id)
+        self.parent = log._open[-1].id if log._open else None
+        log._open.append(self)
         self._rf = torch.profiler.record_function(self.name)
         self._rf.__enter__()
         self.start = clock()
@@ -120,7 +124,7 @@ class SpanLog:
         self.capacity = int(capacity)
         self.dropped = 0
         self._done: Deque[_Done] = collections.deque(maxlen=self.capacity)
-        self._open: List[int] = []
+        self._open: List[_Span] = []
         self._next_id = 0
 
     def start(self, capacity: Optional[int] = None) -> None:
@@ -151,6 +155,13 @@ class SpanLog:
         self._done.clear()
         self.dropped = 0
         return out
+
+    def annotate(self, **attrs: Any) -> None:
+        """Add attributes to the innermost open span (nothing while the
+        log is off), for a callee that learns what its caller's span
+        should say."""
+        if self._open:
+            self._open[-1].attrs.update(attrs)
 
     def span(self, name: str, **attrs: Any):
         """A context that records one span while the log is on, else an

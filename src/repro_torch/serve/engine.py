@@ -57,6 +57,7 @@ from repro_torch.models import transformer as T
 from repro_torch.obs.events import NULL_LOG, EventLog
 from repro_torch.obs.spans import SPANS
 from repro_torch.serve import state_utils as su
+from repro_torch.serve.decode_graph import DecodeGraphs
 
 
 @dataclass
@@ -132,9 +133,15 @@ def _group_done(g: Optional[_Group]) -> bool:
 
 
 def make_decode_fn(model_cfg: ModelConfig, rt: T.Runtime) -> Callable:
-    """One ``decode_step`` closure, shared by every caller that ticks a
-    group.  PyTorch runs it eagerly; there is nothing to jit."""
-    return lambda p, s, t: T.decode_step(p, s, t, model_cfg, rt)
+    """One decode closure, ``(params, state, tokens) -> (logits, state)``,
+    shared by every caller that ticks a group.  On a CUDA device each
+    decode state's step is captured once as a CUDA graph and replayed
+    (:class:`repro_torch.serve.decode_graph.DecodeGraphs`); on the CPU, or
+    under a device mesh, it is ``decode_step`` run eagerly.  While a capture
+    lasts, every ``torch.cuda.Event`` the process makes is an ``external``
+    one, so that a caller's timers around a layer inside the step stay
+    readable after replays."""
+    return DecodeGraphs(model_cfg, rt)
 
 
 def _recut_bytes(before: List, after: List) -> int:
